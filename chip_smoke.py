@@ -7,16 +7,20 @@ which raises (and so exits non-zero) on failure:
   1. card: name and power limit, CUDA version, and the build of every
      kernel from ofb_tpu_torch/csrc (one nvcc per source, in parallel);
   2. kernels: each kernel's wrapper against its plain PyTorch twin on the
-     same inputs, at the DeiT-S shapes of the search step and at ragged
-     shapes, in bf16 and fp32 (TF32 off);
-  3. timing: each kernel with CUDA events at batch 256, beside its bound,
-     its plain twin and torch's scaled_dot_product_attention (timed here
-     as a yardstick only; the port never calls it);
+     same inputs, both bodies (the resident `wgmma` one and the general
+     one, each asked for by name), at the DeiT-S shapes of the search step
+     and at ragged shapes, in bf16 and fp32 (TF32 off);
+  3. timing: both bodies of each kernel with CUDA events at batch 256, in
+     turns (general, resident, resident, general), beside the bound, the
+     plain twin and torch's scaled_dot_product_attention (timed here as a
+     yardstick only; the port never calls it); the resident body also at
+     batch 64;
   4. reference: the port's DeiT-S forward and backward on the card (fp32,
      kernels) against the same model on the CPU (fp32, plain twins);
   5. the slice: the DeiT-S search step at full width on the card, bf16,
      batch 64: finite losses, and the attention kernels launched exactly
-     12 + 12 times per microbatch, counted from 0.
+     12 + 12 times per microbatch, counted from 0, all through the
+     resident body.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -37,7 +41,12 @@ BF16_FLOPS = 989e12              # H100 SXM, dense
 # dq / dk products, each a relative error up to 2^-9 per term.
 TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
 DEIT_S = (64, 197, 6, 64)        # B, N, H, d of the search step at batch 64
-RAGGED = [(3, 17, 2, 16), (2, 33, 3, 24), (2, 70, 2, 40)]
+# the resident body: bf16, N <= 256, d a multiple of 16
+RESIDENT = [DEIT_S, (2, 197, 6, 32), (2, 197, 3, 128), (2, 50, 4, 32),
+            (2, 256, 2, 64), (3, 17, 2, 16)]
+# the general body: everything else, and DeiT-S when asked for by name
+GENERAL = [DEIT_S, (2, 257, 2, 64), (3, 17, 2, 16), (2, 33, 3, 24),
+           (2, 70, 2, 40)]
 TIMING = (256, 197, 6, 64)
 ATTN_SRC = "ofb_tpu/ops/pallas_attention.py"
 
@@ -60,6 +69,28 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_report(log_text):
+    """One line a kernel from nvcc's `-Xptxas -v` output: its name with its
+    template arguments, registers a thread and spilled bytes."""
+    import re
+    name = None
+    spills = ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d+(attention_\w+?_kernel)(I(?:Li\d+E|[a-z0-9_]+)*E)?",
+                          m.group(1))
+            name = m.group(1)[:60] if not k else k.group(1) + "<" + ", ".join(
+                re.findall(r"Li(\d+)E", k.group(2) or "")) + ">"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"spills {m.group(1)} B stored, {m.group(2)} B loaded"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            yield f"{name}: {m.group(1)} registers, {spills}"
+            name = None
+
+
 def make_qkv(B, N, H, d, dtype, gen):
     """q pre-scaled and contiguous, k and v strided views of a
     (B, N, 3, H, d) buffer: what the search step hands the kernels."""
@@ -75,40 +106,49 @@ def rel_err(got, ref):
 
 
 def check_kernels(A):
-    """Phase 2. Returns the max abs errors at the search step's shape and
-    type (DeiT-S, bf16)."""
+    """Phase 2. Returns the max abs errors of both bodies at the search
+    step's shape and type (DeiT-S, bf16)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(shape, torch.bfloat16, "resident") for shape in RESIDENT]
+    cases += [(shape, dtype, "general") for shape in GENERAL
+              for dtype in (torch.bfloat16, torch.float32)]
     main_err = {}
-    for shape in [DEIT_S] + RAGGED:
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = make_qkv(*shape, dtype, gen)
-            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-            o, lse = A.attention_fwd(q, k, v)
-            torch.cuda.synchronize()
-            ro, rl = A.attention_fwd_reference(q.float(), k.float(), v.float())
-            dq, dk, dv = A.attention_bwd(q, k, v, o, lse, do)
-            torch.cuda.synchronize()
-            ref = A.attention_bwd_reference(q.float(), k.float(), v.float(),
-                                            do.float())
-            tol = TOL[str(dtype).split(".")[-1]]
-            fwd = rel_err(o, ro)
-            lse_err = (lse - rl).abs().max().item()
-            bwd = [rel_err(g, r) for g, r in zip((dq, dk, dv), ref)]
-            log(f"kernels {shape} {dtype}: fwd rel {fwd[1]:.3e}, lse abs "
-                f"{lse_err:.3e}, bwd rel " +
-                ", ".join(f"{e[1]:.3e}" for e in bwd) + f" (tol {tol:g})")
-            if fwd[1] > tol or lse_err > 1e-3 or max(e[1] for e in bwd) > tol:
-                raise AssertionError(f"kernel disagrees with its twin at "
-                                     f"{shape} {dtype}")
-            if shape == DEIT_S and dtype == torch.bfloat16:
-                main_err = {"attention_fwd": fwd[0],
-                            "attention_bwd": max(e[0] for e in bwd)}
+    for shape, dtype, body in cases:
+        q, k, v = make_qkv(*shape, dtype, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        if A.attention_body(shape[1], shape[3], dtype).name != body \
+                and body == "resident":
+            raise AssertionError(f"{shape} {dtype} is not the resident body's")
+        o, lse = A.attention_fwd(q, k, v, body=body)
+        torch.cuda.synchronize()
+        ro, rl = A.attention_fwd_reference(q.float(), k.float(), v.float())
+        dq, dk, dv = A.attention_bwd(q, k, v, o, lse, do, body=body)
+        torch.cuda.synchronize()
+        ref = A.attention_bwd_reference(q.float(), k.float(), v.float(),
+                                        do.float())
+        tol = TOL[str(dtype).split(".")[-1]]
+        fwd = rel_err(o, ro)
+        lse_err = (lse - rl).abs().max().item()
+        bwd = [rel_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+        log(f"kernels {body} {shape} {dtype}: fwd rel {fwd[1]:.3e}, lse "
+            f"abs {lse_err:.3e}, bwd rel " +
+            ", ".join(f"{e[1]:.3e}" for e in bwd) + f" (tol {tol:g})")
+        if not (fwd[1] <= tol and lse_err <= 1e-3
+                and max(e[1] for e in bwd) <= tol):
+            raise AssertionError(f"the {body} body disagrees with its twin "
+                                 f"at {shape} {dtype}")
+        if shape == DEIT_S and dtype == torch.bfloat16:
+            tag = "" if body == "resident" else "_general"
+            main_err["attention_fwd" + tag] = fwd[0]
+            main_err["attention_bwd" + tag] = max(e[0] for e in bwd)
     return main_err
 
 
 def time_kernels(A):
-    """Phase 3: ms of each kernel, its twin and SDPA at batch 256, bf16."""
+    """Phase 3: ms of both bodies of each kernel, the twin and SDPA at
+    batch 256, bf16, on this one card; the bodies in turns (general,
+    resident, resident, general), each figure the mean of its two turns."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -116,34 +156,58 @@ def time_kernels(A):
     q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
     o, lse = A.attention_fwd(q, k, v)
-    out = {}
-    out["attention_fwd"] = dict(
-        ms=cuda_time_ms(lambda: A.attention_fwd(q, k, v)),
-        plain_ms=cuda_time_ms(lambda: A.attention_fwd_reference(q, k, v)),
-        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            scale=1.0)))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     so = F.scaled_dot_product_attention(qg.transpose(1, 2), kg.transpose(1, 2),
                                         vg.transpose(1, 2), scale=1.0)
     sdo = do.transpose(1, 2)
-    out["attention_bwd"] = dict(
-        ms=cuda_time_ms(lambda: A.attention_bwd(q, k, v, o, lse, do)),
-        plain_ms=cuda_time_ms(lambda: A.attention_bwd_reference(q, k, v, do)),
-        library_ms=cuda_time_ms(lambda: torch.autograd.grad(
-            so, (qg, kg, vg), sdo, retain_graph=True)))
+    calls = {
+        "attention_fwd": lambda body: A.attention_fwd(q, k, v, body=body),
+        "attention_bwd": lambda body: A.attention_bwd(q, k, v, o, lse, do,
+                                                      body=body)}
+    plain = {
+        "attention_fwd": lambda: A.attention_fwd_reference(q, k, v),
+        "attention_bwd": lambda: A.attention_bwd_reference(q, k, v, do)}
+    library = {
+        "attention_fwd": lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=1.0),
+        "attention_bwd": lambda: torch.autograd.grad(
+            so, (qg, kg, vg), sdo, retain_graph=True)}
     elems = B * N * H * d
     bytes_ = {"attention_fwd": 4 * elems * 2, "attention_bwd": 7 * elems * 2}
     flops = {"attention_fwd": 4 * B * H * N * N * d,
              "attention_bwd": 10 * B * H * N * N * d}
-    for name, rec in out.items():
+    out = {}
+    for name, call in calls.items():
+        turns = [(body, cuda_time_ms(lambda: call(body))) for body in
+                 ("general", "resident", "resident", "general")]
+        ms = {body: sum(t for b, t in turns if b == body) / 2
+              for body in ("general", "resident")}
         t_bytes = bytes_[name] / HBM_BYTES_PER_S * 1e3
         t_ops = flops[name] / BF16_FLOPS * 1e3
-        rec["bound_ms"] = max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"timing {name} B={B} bf16: kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        shared = dict(plain_ms=cuda_time_ms(plain[name]),
+                      library_ms=cuda_time_ms(library[name]),
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+        out[name] = dict(ms=ms["resident"], **shared)
+        out[name + "_general"] = dict(ms=ms["general"], **shared)
+        log(f"timing {name} B={B} bf16: turns " +
+            ", ".join(f"{b} {t:.4f}" for b, t in turns) + f" ms; resident "
+            f"{ms['resident']:.4f} ms is {ms['general'] / ms['resident']:.2f}x "
+            f"faster than general {ms['general']:.4f} ms; plain "
+            f"{shared['plain_ms']:.4f} ms, sdpa {shared['library_ms']:.4f} "
+            f"ms, bound {shared['bound_ms']:.4f} ms ({shared['bound_by']})")
+        if ms["resident"] >= ms["general"]:
+            raise AssertionError(f"{name}: the resident body is not faster "
+                                 f"than the general one")
+    # the search step's own batch in phase 5
+    q, k, v = make_qkv(*DEIT_S, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = A.attention_fwd(q, k, v)
+    t_f = cuda_time_ms(lambda: A.attention_fwd(q, k, v))
+    t_b = cuda_time_ms(lambda: A.attention_bwd(q, k, v, o, lse, do))
+    log(f"timing resident B={DEIT_S[0]} bf16: attention_fwd {t_f:.4f} ms, "
+        f"attention_bwd {t_b:.4f} ms")
     return out
 
 
@@ -161,7 +225,7 @@ def check_against_cpu():
     mask = (torch.rand((2, 196), generator=g) < 0.25).float()
     for dev in ("cpu", "cuda"):
         bundle = create_model("deit_small_patch16_224_mim", device=dev,
-                              patch_search=True, drop_path_rate=0.0)
+                              patch_search=True)
         params, alphas, arch = bundle.init(0)
         out = mim_forward(params, alphas, arch, x.to(dev), bundle.cfg,
                           bundle.space, train=True, use_mim=True,
@@ -208,6 +272,8 @@ def run_slice(A, steps=3):
     dt = time.perf_counter() - t0
     launches = {"attention_fwd": A.attention_fwd.launches,
                 "attention_bwd": A.attention_bwd.launches}
+    by_body = {"attention_fwd": dict(A.attention_fwd.by_body),
+               "attention_bwd": dict(A.attention_bwd.by_body)}
 
     vals = {k: v.item() for k, v in m.items()}
     log("slice metrics: " + json.dumps(vals))
@@ -219,11 +285,17 @@ def run_slice(A, steps=3):
     if launches != {"attention_fwd": want, "attention_bwd": want}:
         raise AssertionError(f"launches {launches}, expected {want} each "
                              f"(12 per microbatch, {micro} microbatches)")
+    took = {"resident": want, "general": 0}
+    if by_body != {"attention_fwd": took, "attention_bwd": took}:
+        raise AssertionError(f"the slice did not run the resident body "
+                             f"throughout: {by_body}")
     img_s = batch * steps / dt
     log(f"slice: DeiT-S search step, batch {batch}, bf16: {img_s:.2f} img/s "
         f"({dt / steps * 1e3:.2f} ms/step over {steps} steps); launches "
-        f"{launches}")
-    return launches
+        f"{launches}, all through the resident body")
+    return {**launches, "attention_fwd_general": by_body["attention_fwd"]
+            ["general"], "attention_bwd_general": by_body["attention_bwd"]
+            ["general"]}
 
 
 def main():
@@ -245,9 +317,8 @@ def main():
     log(f"build: {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for path in libs.values():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {path.name}: {line.strip()}", file=sys.stderr)
+        for line in ptxas_report(path.with_suffix(".log").read_text()):
+            print(f"  {path.name}: {line}", file=sys.stderr)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -257,8 +328,11 @@ def main():
     launches = run_slice(A)
 
     kernels = []
-    for name, src, line in (("attention_fwd", "attention_fwd.cu", 68),
-                            ("attention_bwd", "attention_bwd.cu", 81)):
+    for name, src, line in (
+            ("attention_fwd", "attention_fwd_resident.cu", 68),
+            ("attention_bwd", "attention_bwd_resident.cu", 81),
+            ("attention_fwd_general", "attention_fwd.cu", 68),
+            ("attention_bwd_general", "attention_bwd.cu", 81)):
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
             replaces=f"{ATTN_SRC}:{line}", launches=launches[name],

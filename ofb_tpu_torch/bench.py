@@ -89,6 +89,10 @@ def profile_steps(step, state, images, labels, gen, n: int, top: int = 25):
           f"device kernels {busy / n / 1e3:.2f} ms/step, busy share "
           f"{busy / wall_us:.3f} (kernel time summed; overlap counts twice)",
           file=sys.stderr)
+    attn = sum(t for key, t, _ in rows if "attention_" in key)
+    print(f"  attention kernels (ofb::...attention_*): {attn / n / 1e3:.3f} "
+          f"ms/step, {100 * attn / busy:.1f}% of device kernel time",
+          file=sys.stderr)
     for key, t, c in rows[:top]:
         print(f"  {t / n / 1e3:9.3f} ms/step {100 * t / busy:5.1f}%  "
               f"{c // n:5d}/step  {key[:110]}", file=sys.stderr)

@@ -259,8 +259,10 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
     """Search-mode forward. x (B, H, W, C) NHWC. `train`, `use_mim` (PMIM
     masking + decoder, the search phase) and `fused` (post-fuse) select
     the path; `keep_ratio` is the annealed PMIM keep fraction. Random
-    draws (token mask, drop-path, dropout) come from `generator`
-    (None: torch's default); `token_mask` (B, L), 1 = removed, replaces
+    draws (token mask, drop-path, dropout) come from `generator`. Without
+    one, drop-path and dropout are off, as in the JAX package without an
+    rng; only a token mask that is not handed in is then drawn from
+    torch's default generator. `token_mask` (B, L), 1 = removed, replaces
     the drawn mask."""
     imgs = x
     x = x.to(compute_dtype)

@@ -188,16 +188,19 @@ def patch_embed(weight, bias, x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x, rate: float, train: bool, generator=None):
-    """Inverted dropout; draws from `generator` (None: torch's default)."""
-    if not train or rate <= 0.0:
+    """Inverted dropout; draws from `generator`. Without a generator there
+    is no draw and x passes unchanged, as the JAX package's `dropout` does
+    without an rng: torch's global generator is never used."""
+    if not train or rate <= 0.0 or generator is None:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def drop_path(x, rate: float, train: bool, generator=None):
-    """Stochastic depth: drop the whole residual branch per sample."""
-    if not train or rate <= 0.0:
+    """Stochastic depth: drop the whole residual branch per sample; no
+    draw without a generator (see `dropout`)."""
+    if not train or rate <= 0.0 or generator is None:
         return x
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
     keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
@@ -206,9 +209,10 @@ def drop_path(x, rate: float, train: bool, generator=None):
 
 def _attend(q, k, v, scale, *, train=False, attn_drop=0.0, generator=None):
     """Softmax attention over (B, N, H, hd). With attention dropout live
-    (training, attn_drop > 0) the matrix must exist, so the plain path
-    runs; every other call goes to the fused kernels."""
-    if train and attn_drop > 0.0:
+    (training, attn_drop > 0 and a generator to draw from) the matrix must
+    exist, so the plain path runs; every other call goes to the fused
+    kernels."""
+    if train and attn_drop > 0.0 and generator is not None:
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k).float()
         attn = torch.softmax(attn * scale, dim=-1).to(q.dtype)
         attn = dropout(attn, attn_drop, train, generator)

@@ -23,12 +23,14 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ofb_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# library name -> its source; every source also includes the shared header
+# library name -> its source; every source also includes the headers
 SOURCES = {
     "attention_fwd": "attention_fwd.cu",
     "attention_bwd": "attention_bwd.cu",
+    "attention_fwd_resident": "attention_fwd_resident.cu",
+    "attention_bwd_resident": "attention_bwd_resident.cu",
 }
-_HEADERS = ("attention_common.cuh",)
+_HEADERS = ("attention_common.cuh", "sm90.cuh")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

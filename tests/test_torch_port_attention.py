@@ -4,7 +4,10 @@ On the CPU the wrappers run the plain twins of the CUDA kernels, so this
 holds the twins (forward, backward and the autograd Function around them)
 against JAX's reference path, its Pallas kernel pair in interpret mode,
 and `jax.grad` through the Pallas custom VJP. The CUDA kernels themselves
-are held against the same twins on the card by chip_smoke.py.
+(two bodies, resident and general) are held against the same twins on the
+card by chip_smoke.py; here the choice between the bodies, the padding and
+the shared memory the resident one asks for are checked, since they are
+plain Python.
 
 Tolerance: fp32 everywhere; the frameworks sum in other orders, so values
 and gradients agree to rtol 1e-5 / atol 2e-6 (the JAX package's own
@@ -108,3 +111,98 @@ def test_cpu_path_counts_no_launch_and_bad_inputs_raise():
         A._check(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
         A._check(q, k[:, :5], v)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("N,d,dtype,aligned,want", [
+    (197, 64, BF16, True, "resident"),       # DeiT-T/S/B on the search step
+    (197, 32, BF16, True, "resident"),
+    (50, 32, BF16, True, "resident"),        # a Swin window and its cls
+    (256, 128, BF16, True, "resident"),      # the largest it takes
+    (1, 16, BF16, True, "resident"),         # the smallest
+    (257, 64, BF16, True, "general"),        # more keys than one pass holds
+    (197, 24, BF16, True, "general"),        # d = 8 * odd
+    (197, 8, BF16, True, "general"),
+    (197, 64, F32, True, "general"),         # fp32 stays off the tensor cores
+    (197, 64, BF16, False, "general"),       # rows not on 16 bytes
+])
+def test_body_choice_by_shape_type_and_alignment(N, d, dtype, aligned, want):
+    body = A.attention_body(N, d, dtype, aligned)
+    assert body.name == want
+    if want == "general":
+        assert body == A.Body("general", 0, 0, 0)
+
+
+@pytest.mark.parametrize("N,keys", [(1, 64), (64, 64), (65, 128), (128, 128),
+                                    (192, 192), (193, 208), (197, 208),
+                                    (208, 208), (209, 256), (256, 256)])
+def test_resident_forward_pads_keys(N, keys):
+    body = A.attention_body(N, 64, BF16)
+    assert body.padded_keys == keys >= N and keys % 16 == 0
+
+
+@pytest.mark.parametrize("d", range(16, 129, 16))
+def test_resident_shared_memory_fits_a_block(d):
+    """Every shape the resident body takes asks for no more shared memory
+    than a Hopper block may have, and for what the kernels lay out: K and V
+    (or Q and dO) whole, the streamed 64-row tiles, the row terms, 1024
+    bytes of slack."""
+    dp = 64 if d <= 64 else 128
+    for N in range(1, 257):
+        body = A.attention_body(N, d, BF16)
+        assert body.name == "resident"
+        assert 0 < body.smem_fwd <= A.MAX_SMEM and 0 < body.smem_bwd <= A.MAX_SMEM
+        assert body.smem_fwd == 2 * body.padded_keys * dp * 2 + 2 * 64 * dp * 2 + 1024
+        rows = -(-N // 16) * 16
+        assert body.smem_bwd >= 2 * rows * dp * 2 + 4 * 64 * dp * 2
+    deit = A.attention_body(197, 64, BF16)
+    assert (deit.smem_fwd, deit.smem_bwd) == (70656, 191488)
+    # two forward blocks fit an SM's 228 KB (1 KB reserved a block); the
+    # fused backward holds five operands and runs one block an SM
+    assert 2 * (deit.smem_fwd + 1024) <= 228 * 1024
+
+
+def test_alignment_of_views():
+    buf = torch.zeros((2, 17, 3, 2, 16), dtype=BF16)
+    assert all(A._aligned16(buf[:, :, i]) for i in range(3))
+    assert not A._aligned16(buf[:, :, 0, :, 4:12])       # starts 8 bytes in
+    odd = torch.zeros((2, 17, 2, 20), dtype=BF16)[..., :16]
+    assert not A._aligned16(odd)                         # head stride 20
+
+
+def test_cpu_tensors_run_the_twins_whatever_body_is_named():
+    A.reset_launch_counts()
+    q, k, v = (torch.from_numpy(x).to(BF16) for x in qkv(2, 197, 2, 64, seed=6))
+    do = torch.from_numpy(qkv(2, 197, 2, 64, seed=7)[0]).to(BF16)
+    want_o, want_lse = A.attention_fwd_reference(q, k, v)
+    for body in (None, "resident", "general"):
+        o, lse = A.attention_fwd(q, k, v, body=body)
+        assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+        got = A.attention_bwd(q, k, v, o, lse, do, body=body)
+        for g, w in zip(got, A.attention_bwd_reference(q, k, v, do)):
+            assert torch.equal(g, w)
+    for w in (A.attention_fwd, A.attention_bwd):
+        assert w.launches == 0 and w.by_body == {"resident": 0, "general": 0}
+
+
+def test_a_named_body_that_does_not_fit_raises_before_any_launch():
+    A.reset_launch_counts()
+    q, k, v = map(torch.from_numpy, qkv())               # fp32
+    with pytest.raises(ValueError, match="resident"):
+        A._launch(A.attention_fwd, "fwd", "resident", [q, k, v], [],
+                  tuple(q.shape))
+    with pytest.raises(ValueError, match="no attention body"):
+        A._launch(A.attention_fwd, "fwd", "flash", [q, k, v], [],
+                  tuple(q.shape))
+    assert A.attention_fwd.launches == 0
+
+
+def test_every_body_has_its_source():
+    from ofb_tpu_torch.ops import cuda_build
+    for lib, entry, _, _ in A._ENTRIES.values():
+        src = cuda_build.CSRC / cuda_build.SOURCES[lib]
+        assert f'extern "C" int {entry}(' in src.read_text()
+    for header in cuda_build._HEADERS:
+        assert (cuda_build.CSRC / header).is_file()

@@ -111,3 +111,51 @@ def test_dense_vit_forward_matches(distilled):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-5)
     assert dense_flops(cfg) == jvit.dense_flops(jcfg)
+
+
+@pytest.mark.parametrize("case", ["mim_unmasked", "mim_token_mask", "vit"])
+def test_train_without_generator_draws_nothing(case):
+    """train=True with drop rates > 0 but no random source: the JAX package
+    applies no drop-path and no dropout (rng None), and so must the port
+    (generator None), without touching torch's global generator.
+    mim_unmasked: both packages, drop_path_rate 0.1, no rng, no PMIM mask
+    (JAX cannot draw one without an rng). mim_token_mask: the port at
+    drop_path_rate 0.1 with an explicit token mask and no generator against
+    JAX at drop_path_rate 0.0 with the rng that drew that mask. vit: the
+    dense forward, drop_path_rate and drop_rate 0.1, no rng."""
+    live = dict(TINY, drop_path_rate=0.1)
+    x = np.random.default_rng(11).uniform(0, 1, (3, 32, 32, 3)).astype(
+        np.float32)
+    if case == "vit":
+        kw = dict(live, drop_rate=0.1)
+        jcfg = jvit.ModelCfg(**kw)
+        jp = jvit.init_vit_params(jax.random.PRNGKey(5), jcfg)
+        want = jvit.vit_forward(jp, x, jcfg, train=True, rng=None,
+                                compute_dtype=jnp.float32)
+        cfg = ModelCfg(**kw)
+        params = load_from_jax(ViT(cfg), np_tree(jp))
+        before = torch.get_rng_state()
+        got = vit_forward(params, torch.from_numpy(x), cfg, train=True,
+                          compute_dtype=torch.float32)
+    else:
+        use_mim = case == "mim_token_mask"
+        jcfg, jspace, jp, ja, jarch = jax_supernet(TINY if use_mim else live)
+        key = jax.random.PRNGKey(18) if use_mim else None
+        jout = jmim.mim_forward(jp, ja, jarch, x, jcfg, jspace, train=True,
+                                use_mim=use_mim, keep_ratio=jnp.float32(0.75),
+                                rng=key, compute_dtype=jnp.float32)
+        mask = torch.from_numpy(jax_token_mask(key, jcfg, 3, 0.75)) \
+            if use_mim else None
+        cfg, space, params, alphas, arch = port_supernet(live, jp, ja, jarch)
+        assert cfg.drop_path_rate == 0.1
+        before = torch.get_rng_state()
+        out = mim_forward(params, alphas, arch, torch.from_numpy(x), cfg,
+                          space, train=True, use_mim=use_mim, keep_ratio=0.75,
+                          token_mask=mask, compute_dtype=torch.float32)
+        if use_mim:
+            assert out.decoder_loss.item() == pytest.approx(
+                float(jout.decoder_loss), rel=1e-4)
+        got, want = out.logits, jout.logits
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(torch.get_rng_state(), before)
