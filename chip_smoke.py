@@ -20,9 +20,22 @@ which raises (and so exits non-zero) on failure:
   5. the slice: the DeiT-S search step at full width on the card, bf16,
      batch 64: finite losses, and the attention kernels launched exactly
      12 + 12 times per microbatch, counted from 0, all through the
-     resident body.
+     resident body;
+  6. the lifecycle, DeiT-S at full width and depth, batch 64: two search
+     steps; crafted alphas and one `compress` pass that converges every
+     module to a subnet of mixed head geometry (moments of the touched
+     leaves zeroed, no tensor re-allocated); two postsearch steps (Mixup
+     on; decoder and mask token bit-identical); `fuse_params`, with gated
+     == fused == sliced logits in fp32 through the CUDA kernels;
+     `export_subnet`; dense train steps (layer-decay AdamW, Mixup, EMA)
+     and eval steps on the subnet in bf16, their attention launches
+     counted from 0 and held, body by body, to what `attention_body`
+     predicts for each block's (N, d): head dims 24, 40 and 56 go through
+     the general body.
 
-The line before the last is the kernels' JSON; the last line is
+The line before the last is the kernels' JSON (`launches` sums the two
+driven paths, `launches_search` and `launches_lifecycle` give each); the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -41,13 +54,20 @@ BF16_FLOPS = 989e12              # H100 SXM, dense
 # dq / dk products, each a relative error up to 2^-9 per term.
 TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
 DEIT_S = (64, 197, 6, 64)        # B, N, H, d of the search step at batch 64
+# the attention shapes of the lifecycle's exported subnet (phase 6), by the
+# body that serves them in bf16
+SUBNET_RESIDENT = [(64, 197, 6, 32), (64, 197, 4, 48), (64, 197, 6, 16)]
+SUBNET_GENERAL = [(64, 197, 4, 40), (64, 197, 2, 24), (64, 197, 6, 56)]
 # the resident body: bf16, N <= 256, d a multiple of 16
 RESIDENT = [DEIT_S, (2, 197, 6, 32), (2, 197, 3, 128), (2, 50, 4, 32),
-            (2, 256, 2, 64), (3, 17, 2, 16)]
+            (2, 256, 2, 64), (3, 17, 2, 16)] + SUBNET_RESIDENT
 # the general body: everything else, and DeiT-S when asked for by name
 GENERAL = [DEIT_S, (2, 257, 2, 64), (3, 17, 2, 16), (2, 33, 3, 24),
-           (2, 70, 2, 40)]
+           (2, 70, 2, 40)] + SUBNET_GENERAL + SUBNET_RESIDENT[:1]
 TIMING = (256, 197, 6, 64)
+# fp32 logits of two forms of one model on the card, as max |a - b| over
+# max |b|: 12 blocks of fp32 sums in other orders (TF32 off)
+TOL_LOGITS = 1e-4
 ATTN_SRC = "ofb_tpu/ops/pallas_attention.py"
 
 
@@ -211,6 +231,36 @@ def time_kernels(A):
     return out
 
 
+def time_subnet_shapes(A):
+    """Phase 3, continued: the body that serves each attention shape of the
+    lifecycle's subnet, forward and backward, bf16, at batch 64 (phase 6's)
+    and 256 (the bench's), beside its bound."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for _, N, H, d in SUBNET_RESIDENT + SUBNET_GENERAL:
+        body = A.attention_body(N, d, torch.bfloat16).name
+        for B in (64, 256):
+            q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen)
+            do = torch.randn(q.shape, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            o, lse = A.attention_fwd(q, k, v)
+            t_f = cuda_time_ms(lambda: A.attention_fwd(q, k, v), iters=10)
+            t_b = cuda_time_ms(lambda: A.attention_bwd(q, k, v, o, lse, do),
+                               iters=10)
+            elems = B * N * H * d
+            b_f = max(8 * elems / HBM_BYTES_PER_S,
+                      4 * B * H * N * N * d / BF16_FLOPS) * 1e3
+            b_b = max(14 * elems / HBM_BYTES_PER_S,
+                      10 * B * H * N * N * d / BF16_FLOPS) * 1e3
+            rows.append(dict(shape=[B, N, H, d], body=body, fwd_ms=t_f,
+                             bwd_ms=t_b, fwd_bound_ms=b_f, bwd_bound_ms=b_b))
+            log(f"timing subnet shape {(B, N, H, d)} bf16, {body} body: "
+                f"fwd {t_f:.4f} ms (bound {b_f:.4f}), bwd {t_b:.4f} ms "
+                f"(bound {b_b:.4f})")
+    return rows
+
+
 def check_against_cpu():
     """Phase 4: the port's DeiT-S (full width, 12 blocks) forward and
     gradients on the card (fp32, CUDA kernels) against the same model on
@@ -298,6 +348,178 @@ def run_slice(A, steps=3):
             ["general"]}
 
 
+def _finite(metrics, where):
+    vals = {k: v.item() for k, v in metrics.items()}
+    for k, v in vals.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{where}: {k} is not finite")
+    return vals
+
+
+def run_lifecycle(A, card, steps=3):
+    """Phase 6: search -> compress -> postsearch -> fuse -> export ->
+    subnet train and eval, DeiT-S at full width and depth, batch 64,
+    through the user entry points as ofb_tpu_torch.bench wires them.
+    `card` is nvidia-smi's name and power limit, printed beside the rates.
+    Returns the launches counted over the whole phase."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.core.optim import named_leaves
+    from ofb_tpu_torch.core.steps import make_eval_step
+    from ofb_tpu_torch.models.mim_vit import fuse_params, mim_forward
+    from ofb_tpu_torch.models.vit import vit_forward
+
+    batch = 64
+    bundle, state, step, images, labels = B.build_step("deit_small", batch,
+                                                       seed=5)
+    cfg, space = bundle.cfg, bundle.space
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    totals = {"attention_fwd": {"resident": 0, "general": 0},
+              "attention_bwd": {"resident": 0, "general": 0}}
+
+    def take_counts():
+        """The launches since the last reset, by body; adds them to the
+        phase's totals and sets the counts to 0."""
+        got = {"attention_fwd": dict(A.attention_fwd.by_body),
+               "attention_bwd": dict(A.attention_bwd.by_body)}
+        for k, by in got.items():
+            for body, n in by.items():
+                totals[k][body] += n
+        A.reset_launch_counts()
+        return got
+
+    # 6.1 two search steps, then a forced prune to convergence
+    A.reset_launch_counts()
+    for _ in range(2):
+        state, m = step(state, images, labels, gen, 0.75)
+    _finite(m, "lifecycle search step")
+    leaves = named_leaves(state.params, state.alphas)
+    objects = {n: id(p) for n, p in leaves.items()}
+    moments = {n: id(t) for n, t in state.opt_state.mu.items()}
+    report, ms, idle_ms = B.force_convergence(state, space)
+    if not (report.finish_search and state.arch.all_finished):
+        raise AssertionError(f"compress did not converge: {report.events}")
+    touched = [n for n in leaves
+               if n.startswith("alphas.") or n.endswith(".score")]
+    if len(report.events) != 2 + 2 * cfg.depth or len(touched) != \
+            2 * (2 + 2 * cfg.depth) - 1:
+        raise AssertionError(f"compress events: {report.events}")
+    dirty = [n for n in touched if state.opt_state.mu[n].any()
+             or state.opt_state.nu[n].any()]
+    if dirty or not state.opt_state.mu["blocks.0.attn.qkv.weight"].any():
+        raise AssertionError(f"moments after compress: not zero in {dirty}")
+    want_dims = []
+    for i, bs in enumerate(space.blocks):
+        (h, c), ml = B.FORCED_CELLS[i % len(B.FORCED_CELLS)]
+        want_dims.append((bs.attn.head_list[h], bs.attn.chan_counts[c],
+                          int(bs.mlp.cell_sizes[ml])))
+    log(f"lifecycle compress: {len(report.events)} events, converged; host "
+        f"{ms:.2f} ms for the converging pass, {idle_ms:.2f} ms for a pass "
+        f"with nothing to prune")
+
+    # 6.2 two postsearch steps, Mixup on; decoder and mask token frozen
+    post = B.build_postsearch_step(bundle, batch)
+    frozen = {n: p.detach().clone() for n, p in leaves.items()
+              if n.startswith("decoder.") or n == "mask_token"}
+    for _ in range(2):
+        state, m = post(state, images, labels, gen, 0.75)
+    vals = _finite(m, "lifecycle postsearch step")
+    log("lifecycle postsearch metrics: " + json.dumps(vals))
+    leaves = named_leaves(state.params, state.alphas)
+    if {n: id(p) for n, p in leaves.items()} != objects or \
+            {n: id(t) for n, t in state.opt_state.mu.items()} != moments:
+        raise AssertionError("compress or a step re-allocated the model")
+    if len(frozen) != 3 or not all(torch.equal(leaves[n], t)
+                                   for n, t in frozen.items()):
+        raise AssertionError("postsearch moved the decoder or the mask token")
+
+    # 6.3 fuse; gated == fused, fp32 logits on one batch
+    x, y = images[0], labels[0]
+    fused, farch = fuse_params(state.params, state.arch, space, cfg)
+    kw = dict(train=False, use_mim=False, compute_dtype=torch.float32)
+    with torch.no_grad():
+        gated = mim_forward(state.params, state.alphas, state.arch, x, cfg,
+                            space, **kw).logits
+        sup = mim_forward(fused, state.alphas, farch, x, cfg, space,
+                          fused=True, **kw).logits
+    e_fused = rel_err(sup, gated)[1]
+    ev_gated = make_eval_step(space, cfg)(state.params, state.alphas,
+                                          state.arch, x, y)
+    ev_fused = make_eval_step(space, cfg, fused=True)(fused, state.alphas,
+                                                      farch, x, y)
+
+    # 6.4 export; sliced == fused, fp32 logits on the same batch
+    dense, dcfg, meta, fstate, train, evaluate = B.build_subnet_steps(
+        bundle, state, batch)
+    if dcfg.embed_dim != 336 or list(dcfg.block_overrides) != want_dims:
+        raise AssertionError(f"exported dims {dcfg.embed_dim}, "
+                             f"{dcfg.block_overrides}; wanted {want_dims}")
+    with torch.no_grad():
+        sliced = vit_forward(dense, x, dcfg, compute_dtype=torch.float32)
+    e_sliced = rel_err(sliced, sup)[1]
+    ev_sliced = evaluate(dense, x, y)
+    losses = [e["loss_sum"].item() / batch
+              for e in (ev_gated, ev_fused, ev_sliced)]
+    log(f"lifecycle gated == fused == sliced, fp32 logits on the card: fused "
+        f"vs gated rel {e_fused:.3e}, sliced vs fused rel {e_sliced:.3e} (tol "
+        f"{TOL_LOGITS:g}); bf16 eval loss gated {losses[0]:.5f}, fused "
+        f"{losses[1]:.5f}, sliced {losses[2]:.5f}")
+    if not (e_fused <= TOL_LOGITS and e_sliced <= TOL_LOGITS):
+        raise AssertionError("gated, fused and sliced logits disagree")
+    # bf16 forwards of three forms of one model: 2% of the loss
+    if not all(math.isfinite(v) and abs(v - losses[1]) <= 2e-2 * losses[1]
+               for v in losses):
+        raise AssertionError(f"bf16 eval losses disagree: {losses}")
+    take_counts()
+
+    # 6.5 dense train steps and eval steps on the subnet, counted from 0
+    fstate, m = train(fstate, images, labels, gen)         # first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fstate, m = train(fstate, images, labels, gen)
+    loss = _finite(m, "subnet train step")["loss"]
+    dt_train = (time.perf_counter() - t0) / steps
+    got_train = take_counts()
+    ev = evaluate(dense, x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ev = evaluate(dense, x, y)
+    _finite(ev, "subnet eval step")
+    dt_eval = (time.perf_counter() - t0) / steps
+    got_eval = take_counts()
+
+    N = cfg.num_patches + cfg.num_tokens
+    blocks = {"resident": 0, "general": 0}
+    for _, d, _ in dcfg.block_overrides:
+        blocks[A.attention_body(N, d, torch.bfloat16).name] += 1
+    micro = steps + 1
+    per_body = {b: n * micro for b, n in blocks.items()}
+    want_train = {"attention_fwd": per_body, "attention_bwd": per_body}
+    want_eval = {"attention_fwd": per_body,
+                 "attention_bwd": {"resident": 0, "general": 0}}
+    if got_train != want_train or got_eval != want_eval:
+        raise AssertionError(
+            f"subnet launches by body: train {got_train} (expected "
+            f"{want_train}), eval {got_eval} (expected {want_eval})")
+    if blocks["general"] == 0 or blocks["resident"] == 0:
+        raise AssertionError(f"the subnet is not of mixed geometry: {blocks}")
+    log(f"lifecycle subnet: D {dcfg.embed_dim}, blocks (heads, head dim, "
+        f"mlp) {list(dcfg.block_overrides)}; {blocks['resident']} blocks "
+        f"take the resident body, {blocks['general']} the general; launches "
+        f"over {micro} train microbatches {got_train}, over {micro} eval "
+        f"batches {got_eval}")
+    log(f"lifecycle subnet rates on {card}, batch {batch}, bf16: train step "
+        f"{batch / dt_train:.2f} img/s ({dt_train * 1e3:.2f} ms/step, loss "
+        f"{loss:.4f}), eval step {batch / dt_eval:.2f} img/s "
+        f"({dt_eval * 1e3:.2f} ms/step) over {steps} steps each")
+    return {"attention_fwd": totals["attention_fwd"]["resident"],
+            "attention_bwd": totals["attention_bwd"]["resident"],
+            "attention_fwd_general": totals["attention_fwd"]["general"],
+            "attention_bwd_general": totals["attention_bwd"]["general"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -324,8 +546,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     errs = check_kernels(A)
     times = time_kernels(A)
+    subnet_times = time_subnet_shapes(A)
     check_against_cpu()
     launches = run_slice(A)
+    lifecycle = run_lifecycle(A, smi)
 
     kernels = []
     for name, src, line in (
@@ -335,8 +559,15 @@ def main():
             ("attention_bwd_general", "attention_bwd.cu", 81)):
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
-            replaces=f"{ATTN_SRC}:{line}", launches=launches[name],
+            replaces=f"{ATTN_SRC}:{line}",
+            launches=launches[name] + lifecycle[name],
+            launches_search=launches[name],
+            launches_lifecycle=lifecycle[name],
             max_abs_err=errs[name], **times[name]))
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels no driven path launched: {idle}")
+    log(json.dumps({"subnet_attention": subnet_times}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
-"""Typed configuration the search step reads.
+"""Typed configuration of the search and finetune stages.
 
-Port of the search half of ofb_tpu/config.py (the reference CLI surface as
-dataclasses). `SearchConfig.resolve` fills absolute learning rates from
-base rates: lr = blr * eff_batch / 256.
+Port of ofb_tpu/config.py (the reference CLI surface as dataclasses).
+`SearchConfig.resolve` and `FinetuneConfig.resolve` fill absolute learning
+rates from base rates: lr = blr * eff_batch / 256.
 """
 
 from __future__ import annotations
@@ -175,4 +175,53 @@ class SearchConfig:
             if fam.lr is None:
                 setattr(out, name,
                         dataclasses.replace(fam, lr=fam.blr * eff_batch / 256))
+        return out
+
+
+@dataclass
+class FinetuneConfig:
+    """The finetune CLI's knobs, typed."""
+
+    model: str = "deit_small_patch16_224_finetune"
+    epochs: int = 300
+    accum_iter: int = 1
+    seed: int = 0
+    start_epoch: int = 0
+    output_dir: str = "runs/finetune"
+    finetune: str = ""                  # path to searched best/fused checkpoint
+
+    drop: float = 0.0
+    drop_path: float = 0.1
+
+    blr: float = 1.5e-4
+    lr: Optional[float] = None
+    layer_decay: float = 0.95
+    weight_decay: float = 0.05
+    eps: float = 1e-8
+    betas: Tuple[float, float] = (0.9, 0.999)
+    clip_grad: Optional[float] = None
+    schedule: ScheduleConfig = field(
+        default_factory=lambda: ScheduleConfig(warmup_epochs=5, min_lr=1e-6))
+
+    model_ema: bool = True
+    model_ema_decay: float = 0.99996
+
+    data: DataConfig = field(default_factory=DataConfig)
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
+    mixup: MixupConfig = field(
+        default_factory=lambda: MixupConfig(mixup=0.8, cutmix=1.0))
+    distillation: DistillationConfig = field(default_factory=DistillationConfig)
+
+    resume: bool = False
+    checkpoint: str = ""
+
+    compute_dtype: str = "bfloat16"
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    log_every: int = 10
+
+    def resolve(self, world_size: int = 1) -> "FinetuneConfig":
+        eff_batch = self.data.batch_size * self.accum_iter * world_size
+        out = dataclasses.replace(self)
+        if out.lr is None:
+            out.lr = out.blr * eff_batch / 256
         return out

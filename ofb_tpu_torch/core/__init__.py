@@ -1,1 +1,2 @@
-"""Training core of the port: losses, optimizer, search step."""
+"""Training core of the port: losses, optimizers, the search, train and eval
+steps, compress, export."""

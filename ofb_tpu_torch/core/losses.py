@@ -1,15 +1,15 @@
-"""Loss stack of the search step, as fp32 tensor functions.
+"""Loss stack of the search and finetune steps, as fp32 tensor functions.
 
 Port of ofb_tpu/core/losses.py: classification criteria (CE, label
-smoothing, soft-target CE) and the OFB search losses (adaptive one-hot
-sparsity per module plus the FLOPs loss). Distillation waits for a later
-slice.
+smoothing, soft-target CE), the teacher-distillation wrapper and the
+distilled models' pair loss, and the OFB search losses (adaptive one-hot
+sparsity per module plus the FLOPs loss).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +49,42 @@ def base_criterion(logits, labels, *, soft_labels: bool, smoothing: float):
     if smoothing > 0.0:
         return label_smoothing_ce(logits, labels, smoothing)
     return cross_entropy(logits, labels)
+
+
+def distillation_loss(base_loss, student_kd: Optional[torch.Tensor],
+                      teacher_logits: Optional[torch.Tensor], *, kind: str,
+                      alpha: float, tau: float) -> torch.Tensor:
+    """Teacher KD wrapper: (1 - alpha) base + alpha kd, with kd the
+    tau-softened KL (sum over the batch, times tau², over the element
+    count) for 'soft' and CE against the teacher's argmax for 'hard'."""
+    if kind == "none" or teacher_logits is None:
+        return base_loss
+    t = teacher_logits.detach().float()
+    s = student_kd.float()
+    if kind == "soft":
+        logp_t = F.log_softmax(t / tau, dim=-1)
+        logp_s = F.log_softmax(s / tau, dim=-1)
+        kd = (logp_t.exp() * (logp_t - logp_s)).sum() * (tau * tau) / s.numel()
+    elif kind == "hard":
+        kd = cross_entropy(s, t.argmax(dim=-1))
+    else:
+        raise ValueError(kind)
+    return base_loss * (1.0 - alpha) + kd * alpha
+
+
+def distilled_pair_loss(logits, logits_dist, labels, *, soft_labels: bool,
+                        smoothing: float) -> torch.Tensor:
+    """Search-phase loss of a distilled model: CE(cls) + CE(dist) +
+    batch-mean KL(cls || dist)."""
+    base = base_criterion(logits, labels, soft_labels=soft_labels,
+                          smoothing=smoothing)
+    logp_d = F.log_softmax(logits_dist.float(), dim=-1)
+    p_c = torch.softmax(logits.float(), dim=-1)
+    kl = (p_c * (torch.log(p_c.clamp_min(1e-12)) - logp_d)).sum() \
+        / logits.shape[0]
+    dist_ce = base_criterion(logits_dist, labels, soft_labels=soft_labels,
+                             smoothing=smoothing)
+    return base + dist_ce + kl
 
 
 # ---------------------------------------------------------------------------

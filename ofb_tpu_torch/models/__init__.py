@@ -1,1 +1,2 @@
-"""Models of the port: search space, ViT, gated MIM supernet, registry."""
+"""Models of the port: search space, ViT, gated MIM supernet, pos-embed
+utilities, registry."""

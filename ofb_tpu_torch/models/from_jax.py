@@ -10,7 +10,15 @@ rules (the JAX package's own torch import rules):
     everything else (bias, score, tokens, pos_embed, alphas) unchanged
 
 Tree paths become module names: `blocks[3]["attn"]["qkv"]["kernel"]` is
-`blocks.3.attn.qkv.weight`.
+`blocks.3.attn.qkv.weight`. A dense tree with per-block dims (an exported
+subnet) loads into a `ViT` built from its config like any other tree.
+
+The optimizers differ in how they name a leaf. The JAX search optimizer
+runs over the pair (params, alphas), so its paths start with `0.` or `1.`
+(`0.patch_embed.score`, `1.blocks.3.attn`), and the finetune optimizer's
+over the params tree alone; the port's names are `patch_embed.score` and
+`alphas.blocks.3.attn`. `leaf_name` / `jax_path` map between the two, and
+`moments_from_jax` / `load_moments_from_jax` carry Adam's moments across.
 """
 
 from __future__ import annotations
@@ -43,6 +51,30 @@ def torch_name(path) -> str:
     if path and path[-1] in ("kernel", "scale"):
         path[-1] = "weight"
     return ".".join(path)
+
+
+def leaf_name(jax_path: str) -> str:
+    """The port's leaf name (as in `core.optim.named_leaves`) of a dotted
+    JAX optimizer path: `0.<params path>` is a weight, `1.<alphas path>`
+    an alpha, anything else a path in a params tree."""
+    parts = jax_path.split(".")
+    if parts[0] == "0":
+        return torch_name(parts[1:])
+    if parts[0] == "1":
+        return "alphas." + ".".join(parts[1:])
+    return torch_name(parts)
+
+
+def jax_path(name: str, ndim: int = 2, *, pair: bool = True) -> str:
+    """The dotted JAX optimizer path of a port leaf name (`ndim` tells a
+    LayerNorm `scale` from a `kernel`); with pair=False the path in the
+    params tree alone."""
+    if name.startswith("alphas."):
+        return "1." + name[len("alphas."):]
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "scale" if ndim == 1 else "kernel"
+    return ("0." if pair else "") + ".".join(parts)
 
 
 def to_torch_layout(path, a: np.ndarray) -> np.ndarray:
@@ -162,3 +194,62 @@ def arch_to_numpy(arch) -> Dict[str, np.ndarray]:
 
     walk(arch, "")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Adam moments
+# ---------------------------------------------------------------------------
+
+def _fields(node):
+    """Children of an optax state node: NamedTuple fields, dict values,
+    sequence items; None for a leaf."""
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [getattr(node, f) for f in node._fields]
+    if isinstance(node, dict):
+        return list(node.values())
+    if isinstance(node, (tuple, list)):
+        return list(node)
+    return None
+
+
+def _adam_states(node):
+    """Every Adam state (a node with `mu`, `nu` and `count`) below `node`,
+    at any nesting of optax's chain / multi_transform / masked states."""
+    if all(hasattr(node, f) for f in ("mu", "nu", "count")):
+        yield node
+        return
+    for child in _fields(node) or ():
+        yield from _adam_states(child)
+
+
+def moments_from_jax(opt_state) -> Dict[str, Any]:
+    """{"count": updates done, "mu": {leaf name: array}, "nu": {...}} of a
+    JAX optimizer state, merged over its families, in the port's names and
+    layouts. Works for the search optimizer (moments over (params, alphas))
+    and the finetune optimizer (moments over params)."""
+    out: Dict[str, Any] = {"count": None, "mu": {}, "nu": {}}
+    for adam in _adam_states(opt_state):
+        out["count"] = int(np.asarray(adam.count))
+        for which in ("mu", "nu"):
+            for path, leaf in _walk(getattr(adam, which)):
+                if hasattr(leaf, "shape"):
+                    out[which][leaf_name(".".join(path))] = np.array(
+                        to_torch_layout(path, np.asarray(leaf, np.float32)),
+                        order="C")
+    return out
+
+
+def load_moments_from_jax(state, opt_state):
+    """Copy a JAX optimizer state's moments and update count into the
+    port's `AdamWState` (or the `LrScaleState` around one), in place."""
+    adam = getattr(state, "inner", state)
+    got = moments_from_jax(opt_state)
+    if set(got["mu"]) != set(adam.mu):
+        raise KeyError("JAX optimizer state and the port's differ in leaves: "
+                       f"{sorted(set(got['mu']) ^ set(adam.mu))[:8]}")
+    with torch.no_grad():
+        for which in ("mu", "nu"):
+            for name, dst in getattr(adam, which).items():
+                dst.copy_(torch.from_numpy(got[which][name]).to(dst.device))
+    adam.count = got["count"]
+    return state

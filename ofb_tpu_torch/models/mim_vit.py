@@ -1,12 +1,15 @@
 """Searchable MIM Vision Transformer, the OFB supernet.
 
-Port of ofb_tpu/models/mim_vit.py with its default gate-fold form: the
+Port of ofb_tpu/models/mim_vit.py. In its default gate-fold form the
 bi-mask gates are multiplied into the qkv / fc1 / patch-embed weights (a
 (D, 3HD) elementwise product instead of a (B, N, 3HD) one), and the 0/1
-live-embed mask into the proj / fc2 output rows. Weights keep their dense
-shapes for the whole search; prune events only rewrite the small
-`ArchState` tensors, and a pruned channel is one whose hard mask is 0, so
-it carries exactly 0 through the residual stream.
+live-embed mask into the proj / fc2 output rows; `gate_fold=False` gates
+the activations instead (the JAX package's OFB_GATE_FOLD=0, same math).
+Weights keep their dense shapes for the whole search; prune events only
+rewrite the small `ArchState` tensors, and a pruned channel is one whose
+hard mask is 0, so it carries exactly 0 through the residual stream.
+`fuse_params` folds the converged scores into the weights once the search
+is over.
 
 The blocks' gates depend only on alphas, scores and arch state, so
 `mim_forward` computes all of them at once on block-stacked tensors
@@ -19,6 +22,8 @@ hand in the PMIM mask instead of drawing it.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -202,20 +207,23 @@ def block_gates(params: MimViT, alphas: Alphas, arch: ArchState,
 
 
 def gated_attention(p, x, gate, arch_blk, hard_embed, cfg: ModelCfg, *,
-                    train=False, generator=None):
+                    train=False, generator=None, gate_fold: bool = True):
     """Gated attention: the block's (H, hd) bi-mask gate (None once fused)
-    is folded into the qkv weights, q/k/v go to the fused kernels, the
-    output writes only live embed channels."""
+    is folded into the qkv weights (or, with gate_fold off, multiplied
+    onto q, k and v), q/k/v go to the fused kernels, the output writes only
+    live embed channels."""
     a = arch_blk.attn
     B, N, _ = x.shape
     H, hd = a.hard_mask.shape
     w = p.qkv.weight.to(x.dtype)
     b = p.qkv.bias.to(x.dtype) if p.qkv.bias is not None else None
-    if gate is not None:
+    if gate is not None and gate_fold:
         g3 = gate.reshape(-1).repeat(3).to(x.dtype)
         w = w * g3[:, None]
         b = b * g3 if b is not None else None
     qkv = F.linear(x, w, b).reshape(B, N, 3, H, hd)
+    if gate is not None and not gate_fold:
+        qkv = qkv * gate.to(qkv.dtype)
     y = _attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], a.scale,
                 train=train, attn_drop=cfg.attn_drop_rate,
                 generator=generator)
@@ -224,16 +232,20 @@ def gated_attention(p, x, gate, arch_blk, hard_embed, cfg: ModelCfg, *,
 
 
 def gated_mlp(p, x, gate, hard_embed, cfg: ModelCfg, *, train=False,
-              generator=None):
+              generator=None, gate_fold: bool = True):
     """Gated MLP: the block's hidden-width gate (None once fused) folded
-    into fc1's output rows."""
+    into fc1's output rows, or multiplied onto fc1's output with gate_fold
+    off."""
     w = p.fc1.weight.to(x.dtype)
     b = p.fc1.bias.to(x.dtype)
-    if gate is not None:
+    if gate is not None and gate_fold:
         g = gate.to(x.dtype)
         w = w * g[:, None]
         b = b * g
-    h = F.gelu(F.linear(x, w, b), approximate="none")
+    h = F.linear(x, w, b)
+    if gate is not None and not gate_fold:
+        h = h * gate.to(x.dtype)
+    h = F.gelu(h, approximate="none")
     h = dropout(h, cfg.drop_rate, train, generator)
     h = _masked_out(p.fc2, h, hard_embed)
     return dropout(h, cfg.drop_rate, train, generator)
@@ -255,15 +267,23 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
                 train: bool, use_mim: bool, fused: bool = False,
                 keep_ratio=None, generator=None,
                 token_mask: Optional[torch.Tensor] = None,
+                gate_fold: bool = True,
                 compute_dtype=torch.bfloat16) -> MimOutput:
     """Search-mode forward. x (B, H, W, C) NHWC. `train`, `use_mim` (PMIM
     masking + decoder, the search phase) and `fused` (post-fuse) select
     the path; `keep_ratio` is the annealed PMIM keep fraction. Random
     draws (token mask, drop-path, dropout) come from `generator`. Without
     one, drop-path and dropout are off, as in the JAX package without an
-    rng; only a token mask that is not handed in is then drawn from
-    torch's default generator. `token_mask` (B, L), 1 = removed, replaces
-    the drawn mask."""
+    rng, and a PMIM forward that is handed no `token_mask` either raises
+    (the JAX package cannot run there at all): torch's global generator is
+    never used. `token_mask` (B, L), 1 = removed, replaces the drawn mask.
+    `gate_fold` picks where the gates multiply: the weights (default) or
+    the activations."""
+    masked = train and use_mim and hasattr(params, "mask_token")
+    if masked and token_mask is None and generator is None:
+        raise ValueError("a PMIM forward (train=True, use_mim=True) needs a "
+                         "`generator` to draw the token mask from, or a "
+                         "`token_mask`")
     imgs = x
     x = x.to(compute_dtype)
     B = x.shape[0]
@@ -274,7 +294,12 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
     pe = params.patch_embed.proj
     if not fused:
         gs = eg.gate * eg.support
-        tok = patch_embed(pe.weight * gs[:, None, None, None], pe.bias * gs, x)
+        if gate_fold:
+            tok = patch_embed(pe.weight * gs[:, None, None, None],
+                              pe.bias * gs, x)
+        else:
+            tok = patch_embed(pe.weight, pe.bias, x)
+            tok = tok * gs.to(tok.dtype)
         we = eg.gate.to(tok.dtype)            # weighted embedding
     else:
         tok = patch_embed(pe.weight, pe.bias, x)
@@ -285,7 +310,7 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
 
     # PMIM masking, after the pos add and before the cls concat
     mask = None
-    if train and use_mim and hasattr(params, "mask_token"):
+    if masked:
         if token_mask is None:
             L = cfg.num_patches
             mask = pmim.random_token_mask(B, L, pmim.keep_count(L, keep_ratio),
@@ -319,13 +344,14 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
                                 bp.norm1.bias, eps=cfg.ln_eps,
                                 passthrough="identity")
         h = gated_attention(bp.attn, h, attn_gates[i], arch.blocks[i], hard_e,
-                            cfg, train=train, generator=generator)
+                            cfg, train=train, generator=generator,
+                            gate_fold=gate_fold)
         tok = tok + drop_path(h, dp, train, generator)
         h = G.masked_layer_norm(tok, eg.support, bp.norm2.weight,
                                 bp.norm2.bias, eps=cfg.ln_eps,
                                 passthrough="identity")
         h = gated_mlp(bp.mlp, h, mlp_gates[i], hard_e, cfg, train=train,
-                      generator=generator)
+                      generator=generator, gate_fold=gate_fold)
         tok = tok + drop_path(h, dp, train, generator)
 
     latent = G.masked_layer_norm(tok, eg.support, params.norm.weight,
@@ -353,3 +379,32 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
             logits_dist = None
     return MimOutput(logits=logits, logits_dist=logits_dist,
                      decoder_loss=decoder_loss, token_mask=mask)
+
+
+def fuse_params(params: MimViT, arch: ArchState, space: SearchSpace,
+                cfg: ModelCfg) -> Tuple[MimViT, ArchState]:
+    """Fold the saliency scores into the weights, once, after the search:
+    tokens, pos_embed, mask_token and the patch-embed conv rows and bias
+    times the embed score; qkv rows and bias times the attention score
+    (broadcast to (H, hd), repeated for q, k and v); fc1 rows and bias
+    times the MLP score. Needs every module finished (the scores are then
+    the linear gates, zero on dead dims). Returns a new model and a new
+    arch state with `fused` set; the ones handed in keep their values."""
+    p = copy.deepcopy(params)
+    with torch.no_grad():
+        es = params.patch_embed.score
+        p.patch_embed.proj.weight.mul_(es[:, None, None, None])
+        p.patch_embed.proj.bias.mul_(es)
+        for name in ("cls_token", "pos_embed", "dist_token", "mask_token"):
+            if hasattr(p, name):
+                getattr(p, name).mul_(es)
+        for bp, ba in zip(p.blocks, arch.blocks):
+            H, hd = ba.attn.hard_mask.shape
+            qkv_scale = bp.attn.score.expand(H, hd).reshape(-1).repeat(3)
+            bp.attn.qkv.weight.mul_(qkv_scale[:, None])
+            if bp.attn.qkv.bias is not None:
+                bp.attn.qkv.bias.mul_(qkv_scale)
+            bp.mlp.fc1.weight.mul_(bp.mlp.score[:, None])
+            bp.mlp.fc1.bias.mul_(bp.mlp.score)
+    fused = torch.ones_like(arch.fused)
+    return p, dataclasses.replace(arch, fused=fused)

@@ -1,22 +1,23 @@
-"""Model registry: named DeiT search supernets.
+"""Model registry: named DeiT search supernets and dense DeiT models.
 
-Port of the DeiT MIM half of ofb_tpu/models/registry.py. `create_model`
+Port of the DeiT half of ofb_tpu/models/registry.py. `create_model`
 returns a `ModelBundle` (static config, search space, device) whose
-`init` builds the parameters, alphas and arch state. Other families
-(dense finetune models, ViT variants, Swin) are not ported yet.
+`init` builds the parameters (and, for a supernet, alphas and arch
+state). The dense factories take the dims of an exported subnet as
+overrides. Other families (stock ViT variants, Swin) are not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..device import resolve_device
 from .mim_vit import Alphas, MimViT
 from .search_space import ArchState, SearchSpace
-from .vit import ModelCfg
+from .vit import ModelCfg, ViT
 
 _REGISTRY: Dict[str, Callable[..., "ModelBundle"]] = {}
 
@@ -25,16 +26,22 @@ _REGISTRY: Dict[str, Callable[..., "ModelBundle"]] = {}
 class ModelBundle:
     name: str
     cfg: ModelCfg
-    space: SearchSpace
+    space: Optional[SearchSpace]
     device: torch.device
     mae: bool = True
+    kind: str = "mim"               # 'mim' (searchable) | 'dense'
 
-    def init(self, seed: int = 0):
-        """(params, alphas, arch) on the bundle's device. Weights are drawn
-        on the CPU from `seed` and moved, so a seed gives the same model on
-        every device."""
+    def init(self, seed: int = 0, *, with_arch: bool = True):
+        """A supernet's (params, alphas, arch), or only its params with
+        with_arch=False; a dense model's params. On the bundle's device.
+        Weights are drawn on the CPU from `seed` and moved, so a seed gives
+        the same model on every device."""
         g = torch.Generator().manual_seed(seed)
+        if self.kind == "dense":
+            return ViT(self.cfg, generator=g).to(self.device)
         params = MimViT(self.cfg, self.space, self.mae, generator=g)
+        if not with_arch:
+            return params.to(self.device)
         alphas = Alphas(self.space, generator=g)
         arch = ArchState.create(self.space)
         return (params.to(self.device), alphas.to(self.device),
@@ -87,5 +94,48 @@ def _mim_factory(size: str):
     return factory
 
 
+def _dense_factory(size: str, img_size=224, distilled=False):
+    def factory(*, device: torch.device, num_classes=1000, drop_rate=0.0,
+                drop_path_rate=0.1, embed_dim=None, num_heads=None,
+                head_dim=None, mlp_hidden=None, qk_scale=None) -> ModelBundle:
+        cfg = _deit_cfg(size, img_size, num_classes, distilled, drop_rate,
+                        drop_path_rate)
+        # exported (pruned) subnets override dims explicitly
+        over = dict(embed_dim=embed_dim, num_heads=num_heads,
+                    head_dim=head_dim, mlp_hidden=mlp_hidden,
+                    qk_scale=qk_scale)
+        cfg = replace(cfg, **{k: v for k, v in over.items() if v is not None})
+        return ModelBundle(name=f"deit_{size}_patch16_{img_size}", cfg=cfg,
+                           space=None, device=device, kind="dense")
+    return factory
+
+
+# searchable MIM supernets
 for _size in ("tiny", "small", "base"):
     _REGISTRY[f"deit_{_size}_patch16_224_mim"] = _mim_factory(_size)
+
+# plain / finetune models and their distilled forms
+for _size in ("tiny", "small", "base"):
+    for _img in (224, 384):
+        for _dist in (False, True):
+            _suffix = "_distilled" if _dist else ""
+            _REGISTRY[f"deit_{_size}{_suffix}_patch16_{_img}"] = \
+                _dense_factory(_size, _img, _dist)
+            _REGISTRY[f"deit_{_size}_patch16_{_img}_finetune"] = \
+                _REGISTRY[f"deit_{_size}_patch16_{_img}"]
+
+
+def add_search_params(bundle: ModelBundle, *, attn_search=True,
+                      mlp_search=True, embed_search=True, patch_search=True,
+                      head_search=False, channel_search=False,
+                      mask_ratio=1.0) -> ModelBundle:
+    """Turn a dense bundle into a searchable MIM bundle."""
+    cfg = bundle.cfg
+    space = SearchSpace.build(
+        cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.hidden,
+        cfg.num_patches, attn_search=attn_search, mlp_search=mlp_search,
+        embed_search=embed_search, patch_search=patch_search,
+        head_search=head_search, channel_search=channel_search,
+        mask_ratio=mask_ratio)
+    return ModelBundle(name=bundle.name + "_mim", cfg=cfg, space=space,
+                       device=bundle.device, kind="mim")

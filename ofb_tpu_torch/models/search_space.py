@@ -334,3 +334,11 @@ class ArchState:
 
     def to(self, device) -> "ArchState":
         return _to(self, device)
+
+    @property
+    def all_finished(self) -> bool:
+        """finish_search of the whole model (one host read)."""
+        flags = [self.embed.finished, self.patch.finished]
+        flags += [d.finished for d in self.stage_embeds]
+        flags += [m.finished for b in self.blocks for m in (b.attn, b.mlp)]
+        return bool(torch.stack(flags).all())

@@ -1,1 +1,2 @@
-"""Ops of the port: gate math, attention kernels, PMIM, FLOPs model."""
+"""Ops of the port: gate math, attention kernels, PMIM, Mixup / CutMix,
+FLOPs model."""

@@ -159,3 +159,29 @@ def test_train_without_generator_draws_nothing(case):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-5)
     assert torch.equal(torch.get_rng_state(), before)
+
+
+def test_pmim_forward_without_a_random_source_raises():
+    """train=True, use_mim=True, no token mask and no generator: the JAX
+    package cannot run (it splits a None rng); the port raises instead of
+    drawing from torch's global generator."""
+    jcfg, jspace, jp, ja, jarch = jax_supernet(TINY)
+    cfg, space, params, alphas, arch = port_supernet(TINY, jp, ja, jarch)
+    x = torch.zeros(2, 32, 32, 3)
+    with pytest.raises(Exception):
+        jmim.mim_forward(jp, ja, jarch, x.numpy(), jcfg, jspace, train=True,
+                         use_mim=True, keep_ratio=jnp.float32(0.75), rng=None,
+                         compute_dtype=jnp.float32)
+    before = torch.get_rng_state()
+    with pytest.raises(ValueError, match="generator"):
+        mim_forward(params, alphas, arch, x, cfg, space, train=True,
+                    use_mim=True, keep_ratio=0.75, compute_dtype=torch.float32)
+    assert torch.equal(before, torch.get_rng_state())
+    # with either source it runs; without MIM it needs neither
+    for kw in (dict(generator=torch.Generator().manual_seed(0)),
+               dict(token_mask=torch.zeros(2, 16))):
+        mim_forward(params, alphas, arch, x, cfg, space, train=True,
+                    use_mim=True, keep_ratio=0.75,
+                    compute_dtype=torch.float32, **kw)
+    mim_forward(params, alphas, arch, x, cfg, space, train=True,
+                use_mim=False, compute_dtype=torch.float32)

@@ -190,3 +190,89 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         make_search_step(bundle.space, bundle.cfg, scfg, tx)
     assert bundle.device.type == "cpu"
+
+
+def test_optimizer_leaf_names_map_both_ways():
+    """JAX optimizer paths (`0.` params, `1.` alphas) against the port's
+    leaf names, on every leaf of the supernet."""
+    from ofb_tpu.core import optim as JO
+    from ofb_tpu_torch.core.optim import named_leaves
+    from ofb_tpu_torch.models.from_jax import jax_path, leaf_name
+    _, _, jp, ja, jarch = jax_supernet(TINY)
+    _, _, params, alphas, _ = port_supernet(TINY, jp, ja, jarch)
+    paths = [JO._path_str(p) for p, _ in
+             jax.tree_util.tree_leaves_with_path((jp, ja))]
+    leaves = named_leaves(params, alphas)
+    assert [leaf_name(p) for p in paths] == list(
+        flatten_from_jax(np_tree(jp))) + [
+        "alphas." + n for n in flatten_from_jax(np_tree(ja))]
+    assert {leaf_name(p) for p in paths} == set(leaves)
+    for p in paths:
+        name = leaf_name(p)
+        assert jax_path(name, leaves[name].dim()) == p
+    assert leaf_name("0.patch_embed.score") == "patch_embed.score"
+    assert leaf_name("1.blocks.3.attn") == "alphas.blocks.3.attn"
+    assert leaf_name("0.blocks.1.norm2.scale") == "blocks.1.norm2.weight"
+    assert leaf_name("blocks.0.attn.qkv.kernel") == "blocks.0.attn.qkv.weight"
+    assert jax_path("norm.weight", 1, pair=False) == "norm.scale"
+
+
+def test_zero_adam_moments_matches_on_jax_predicate():
+    """The same prune event's moment reset in both packages: JAX's
+    predicate on its paths, the port's on the mapped names."""
+    from ofb_tpu.config import OptimFamilyConfig as JFam
+    from ofb_tpu.config import ScheduleConfig as JSched
+    from ofb_tpu.core import optim as JO
+    from ofb_tpu_torch.config import OptimFamilyConfig, ScheduleConfig
+    from ofb_tpu_torch.core import optim as O
+    from ofb_tpu_torch.models.from_jax import leaf_name, moments_from_jax
+    _, _, jp, ja, jarch = jax_supernet(TINY)
+    _, _, params, alphas, _ = port_supernet(TINY, jp, ja, jarch)
+    jtx, _ = JO.build_search_optimizer(JFam(lr=1e-3), JFam(lr=1e-2),
+                                       JFam(lr=1e-3), JSched(),
+                                       total_steps=10, steps_per_epoch=5)
+    jopt = jax.tree_util.tree_map(jnp.ones_like, jtx.init((jp, ja)))
+    tx, _ = O.build_search_optimizer(
+        OptimFamilyConfig(lr=1e-3), OptimFamilyConfig(lr=1e-2),
+        OptimFamilyConfig(lr=1e-3), ScheduleConfig(), total_steps=10,
+        steps_per_epoch=5)
+    opt = tx.init(O.named_leaves(params, alphas))
+    for t in list(opt.mu.values()) + list(opt.nu.values()):
+        t.fill_(1.0)
+    opt.count = 1
+    zero = ["1.patch", "1.blocks.1.attn", "0.blocks.1.attn.score",
+            "0.patch_embed.score"]
+    jopt = JO.zero_adam_moments(
+        jopt, lambda path: any(path.startswith(z) for z in zero))
+    names = {leaf_name(z) for z in zero}
+    mu_objects = dict(opt.mu)
+    assert O.zero_adam_moments(opt, lambda n: n in names) is opt
+    want = moments_from_jax(jopt)
+    assert opt.count == want["count"] == 1
+    for which in ("mu", "nu"):
+        got = getattr(opt, which)
+        assert set(got) == set(want[which])
+        for n, t in got.items():
+            np.testing.assert_array_equal(t.numpy(), want[which][n], n)
+            assert bool(t.any()) == (n not in names), n
+    assert all(opt.mu[n] is t for n, t in mu_objects.items())
+
+
+def test_new_entry_points_default_to_cuda(monkeypatch):
+    from ofb_tpu_torch.core import steps as S
+    from ofb_tpu_torch.core.lr_decay import build_finetune_optimizer
+    from ofb_tpu_torch.models.registry import create_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_model("deit_small_patch16_224_finetune")
+    bundle = create_model("deit_tiny_patch16_224", device="cpu")
+    sup = create_model("deit_tiny_patch16_224_mim", device="cpu")
+    tx = build_finetune_optimizer(torch.nn.Linear(2, 2),
+                                  lr_schedule=lambda c: 1e-3)
+    for make in (lambda **kw: S.make_train_step(bundle.cfg, tx,
+                                                num_classes=1000, **kw),
+                 lambda **kw: S.make_eval_step_dense(bundle.cfg, **kw),
+                 lambda **kw: S.make_eval_step(sup.space, sup.cfg, **kw)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+        make(device="cpu")

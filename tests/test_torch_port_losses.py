@@ -105,3 +105,53 @@ def test_classification_criteria():
                                       smoothing=smooth)) == pytest.approx(
             float(JL.base_criterion(logits, labels, soft_labels=False,
                                     smoothing=smooth)), rel=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["none", "soft", "hard"])
+def test_distillation_loss_matches(kind):
+    """Value and gradient in the student's logits; the teacher's logits
+    get none. rel 1e-6 (fp32 log-softmax sums)."""
+    rng = np.random.default_rng(1)
+    s = rng.normal(size=(6, 9)).astype(np.float32) * 2
+    t = rng.normal(size=(6, 9)).astype(np.float32) * 2
+    base = np.float32(1.7)
+    kw = dict(kind=kind, alpha=0.3, tau=2.5)
+    want, jgrad = jax.value_and_grad(
+        lambda s_: JL.distillation_loss(jnp.asarray(base), s_, jnp.asarray(t),
+                                        **kw))(jnp.asarray(s))
+    ts = torch.from_numpy(s).requires_grad_()
+    tt = torch.from_numpy(t).requires_grad_()
+    got = L.distillation_loss(torch.tensor(base), ts, tt, **kw)
+    assert got.item() == pytest.approx(float(want), rel=1e-6)
+    if kind != "none":
+        got.backward()
+        np.testing.assert_allclose(ts.grad.numpy(), np.asarray(jgrad),
+                                   rtol=1e-5, atol=1e-8)
+        assert tt.grad is None
+    assert float(L.distillation_loss(torch.tensor(base), ts, None, **kw)) \
+        == pytest.approx(float(base))
+    with pytest.raises(ValueError):
+        L.distillation_loss(torch.tensor(base), ts, tt, kind="cosine",
+                            alpha=0.5, tau=1.0)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_distilled_pair_loss_matches(soft):
+    rng = np.random.default_rng(2)
+    a = rng.normal(size=(5, 7)).astype(np.float32) * 3
+    b = rng.normal(size=(5, 7)).astype(np.float32) * 3
+    labels = rng.dirichlet(np.ones(7), 5).astype(np.float32) if soft \
+        else rng.integers(0, 7, 5)
+    kw = dict(soft_labels=soft, smoothing=0.1)
+    want, (ga, gb) = jax.value_and_grad(
+        lambda x, y: JL.distilled_pair_loss(x, y, jnp.asarray(labels), **kw),
+        argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    got = L.distilled_pair_loss(ta, tb, torch.from_numpy(labels), **kw)
+    assert got.item() == pytest.approx(float(want), rel=1e-6)
+    got.backward()
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(gb), rtol=1e-5,
+                               atol=1e-7)

@@ -209,3 +209,137 @@ def test_params_round_trip_after_steps(runs):
     back = to_jax(runs["state"].params)
     assert jax.tree_util.tree_structure(back) == \
         jax.tree_util.tree_structure(np_tree(runs["jstate"].params))
+
+
+def test_step_without_a_random_source_raises():
+    """The search phase needs PMIM masks and the postsearch phase Mixup
+    draws: from a generator or handed in, never from torch's global
+    generator."""
+    _, pscfg = search_cfgs()
+    _, _, jp, ja, jarch = jax_supernet(TINY)
+    cfg, space, params, alphas, arch = port_supernet(TINY, jp, ja, jarch)
+    tx, _ = build_tx(O, pscfg)
+    state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
+                       opt_state=tx.init(O.named_leaves(params, alphas)))
+    x = torch.zeros(A, MB, 32, 32, 3)
+    y = torch.zeros(A, MB, dtype=torch.long)
+    before = torch.get_rng_state()
+    for phase in ("search", "postsearch"):
+        step = make_search_step(space, cfg, pscfg, tx, phase=phase,
+                                compute_dtype=torch.float32, device="cpu")
+        with pytest.raises(ValueError, match="generator"):
+            step(state, x, y, None, KEEP)
+    assert torch.equal(before, torch.get_rng_state())
+    assert state.step == 0 and state.opt_state.count == 0
+    # with a generator both phases run
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(A, MB, 32, 32, 3, generator=g)
+    for phase, keys in (("search", JS.METRIC_KEYS_SEARCH),
+                        ("postsearch", JS.METRIC_KEYS_POSTSEARCH)):
+        step = make_search_step(space, cfg, pscfg, tx, phase=phase,
+                                compute_dtype=torch.float32, device="cpu")
+        state, m = step(state, x, y, g, KEEP)
+        assert set(m) == set(keys)
+        assert all(torch.isfinite(v) for v in m.values())
+
+
+def test_options_that_are_not_ported_raise():
+    _, pscfg = search_cfgs()
+    cfg, space, _, _, _ = port_supernet(TINY, *jax_supernet(TINY)[2:])
+    tx, _ = build_tx(O, pscfg)
+    for kw in (dict(fused_augment=True), dict(teacher_apply=lambda x: x)):
+        with pytest.raises(NotImplementedError):
+            make_search_step(space, cfg, pscfg, tx, device="cpu", **kw)
+    with pytest.raises(ValueError, match="phase"):
+        make_search_step(space, cfg, pscfg, tx, phase="finetune",
+                         device="cpu")
+
+
+def test_distilled_search_step_matches():
+    """A distilled supernet takes the pair loss (CE + CE + KL); one
+    accumulated search step against JAX's."""
+    jscfg, pscfg = search_cfgs()
+    kw = dict(TINY, distilled=True)
+    jcfg, jspace, jp, ja, jarch = jax_supernet(kw, seed=8)
+    cfg, space, params, alphas, arch = port_supernet(kw, jp, ja, jarch)
+    rng = np.random.default_rng(10)
+    images = rng.uniform(0, 1, (A, MB, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, TINY["num_classes"], (A, MB))
+    jtx, _ = build_tx(JO, jscfg)
+    jstate = JS.TrainState(step=jnp.asarray(0, jnp.int32), params=jp,
+                           alphas=ja, arch=jarch,
+                           opt_state=jtx.init((jp, ja)))
+    key = jax.random.PRNGKey(77)
+    masks = np.stack([jax_token_mask(jax.random.split(r, 3)[1], jcfg, MB,
+                                     KEEP) for r in jax.random.split(key, A)])
+    jstate, jm = JS.make_search_step(
+        jspace, jcfg, jscfg, jtx, phase="search", compute_dtype=jnp.float32,
+        donate=False)(jstate, images, labels, key, jnp.float32(KEEP))
+    tx, _ = build_tx(O, pscfg)
+    state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
+                       opt_state=tx.init(O.named_leaves(params, alphas)))
+    state, m = make_search_step(
+        space, cfg, pscfg, tx, compute_dtype=torch.float32, device="cpu")(
+        state, torch.from_numpy(images), torch.from_numpy(labels), None,
+        KEEP, token_masks=torch.from_numpy(masks))
+    for n, v in jm.items():
+        assert m[n].item() == pytest.approx(
+            float(v), rel=1e-4 if n == "grad_norm" else 1e-5), n
+    want = flatten_from_jax(np_tree(jstate.params))
+    for n, p in state.params.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=0,
+                                   atol=2e-5, err_msg=n)
+    assert params.head_dist.weight.grad is None      # cleared by the step
+
+
+@pytest.mark.parametrize("progressive", [True, False])
+def test_keep_ratio_schedule_matches(progressive):
+    from ofb_tpu_torch.core.steps import keep_ratio_schedule
+    jscfg, pscfg = search_cfgs()
+    jscfg.progressive = pscfg.progressive = progressive
+    _, jspace, jp, ja, jarch = jax_supernet(TINY)
+    jarch = jarch.replace(patch=jarch.patch.replace(
+        switch=jarch.patch.switch.at[0].set(False)))
+    _, space, _, _, arch = port_supernet(TINY, jp, ja, jarch)
+    for frac in (0.0, 0.37, 1.0, 5.0):
+        got = keep_ratio_schedule(frac, pscfg, arch, space)
+        want = JS.keep_ratio_schedule(frac, jscfg, jarch, jspace)
+        assert float(got) == float(want), frac
+    assert isinstance(got, torch.Tensor) != progressive
+
+
+def test_steps_take_both_gating_forms():
+    """`gate_fold=False` in the search and eval steps is the same math as
+    the default: one search step and one eval from equal states agree
+    (loss rel 1e-5, params atol 2e-5)."""
+    import copy
+    from ofb_tpu_torch.core.steps import make_eval_step
+    _, pscfg = search_cfgs()
+    _, _, jp, ja, jarch = jax_supernet(TINY, seed=4)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(0, 1, (A, MB, 32, 32, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, TINY["num_classes"], (A, MB)))
+    masks = (torch.rand(A, MB, 16, generator=torch.Generator().manual_seed(1))
+             < 0.25).float()
+    got = []
+    for fold in (True, False):
+        cfg, space, params, alphas, arch = port_supernet(TINY, jp, ja, jarch)
+        tx, _ = build_tx(O, pscfg)
+        state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
+                           opt_state=tx.init(O.named_leaves(params, alphas)))
+        step = make_search_step(space, cfg, pscfg, tx, gate_fold=fold,
+                                compute_dtype=torch.float32, device="cpu")
+        state, m = step(state, x, y, None, KEEP, token_masks=masks)
+        ev = make_eval_step(space, cfg, gate_fold=fold, device="cpu",
+                            compute_dtype=torch.float32)(
+            params, alphas, arch, x[0], y[0])
+        got.append((m, ev, copy.deepcopy(params.state_dict())))
+    (m1, e1, p1), (m2, e2, p2) = got
+    for k in m1:
+        assert m1[k].item() == pytest.approx(m2[k].item(), rel=1e-5), k
+    assert e1["loss_sum"].item() == pytest.approx(e2["loss_sum"].item(),
+                                                  rel=1e-5)
+    for n in p1:
+        np.testing.assert_allclose(p1[n].numpy(), p2[n].numpy(), rtol=0,
+                                   atol=2e-5, err_msg=n)
