@@ -8,15 +8,22 @@ which raises (and so exits non-zero) on failure:
      kernel from ofb_tpu_torch/csrc (one nvcc per source, in parallel);
   2. kernels: each kernel's wrapper against its plain PyTorch twin on the
      same inputs, both bodies (the resident `wgmma` one and the general
-     one, each asked for by name), at the DeiT-S shapes of the search step
-     and at ragged shapes, in bf16 and fp32 (TF32 off);
+     one, each asked for by name), at the DeiT-S shapes of the search step,
+     the exported subnet's shapes (head dims 8 * odd among them, which the
+     resident body runs zero-padded to the next multiple of 16) and ragged
+     shapes, in bf16 and fp32 (TF32 off), every output finite;
   3. timing: both bodies of each kernel with CUDA events at batch 256, in
      turns (general, resident, resident, general), beside the bound, the
      plain twin and torch's scaled_dot_product_attention (timed here as a
      yardstick only; the port never calls it); the resident body also at
-     batch 64;
+     batch 64; then at each attention shape of the exported subnet, batch
+     256: resident, general (asked for by name), twin and SDPA. Each of
+     these also as device time (torch.profiler: the kernels' summed
+     durations, the host's dispatch left out);
   4. reference: the port's DeiT-S forward and backward on the card (fp32,
-     kernels) against the same model on the CPU (fp32, plain twins);
+     kernels) against the same model on the CPU (fp32, plain twins); the
+     card's pass is a driven path of its own, counted from 0: 12 + 12
+     launches, all through the general body (fp32);
   5. the slice: the DeiT-S search step at full width on the card, bf16,
      batch 64: finite losses, and the attention kernels launched exactly
      12 + 12 times per microbatch, counted from 0, all through the
@@ -30,12 +37,12 @@ which raises (and so exits non-zero) on failure:
      `export_subnet`; dense train steps (layer-decay AdamW, Mixup, EMA)
      and eval steps on the subnet in bf16, their attention launches
      counted from 0 and held, body by body, to what `attention_body`
-     predicts for each block's (N, d): head dims 24, 40 and 56 go through
-     the general body.
+     predicts for each block's (N, d): all 12 blocks, head dims 24, 40 and
+     56 among them, through the resident body, none through the general.
 
-The line before the last is the kernels' JSON (`launches` sums the two
-driven paths, `launches_search` and `launches_lifecycle` give each); the
-last line is
+The line before the last is the kernels' JSON (`launches` sums the three
+driven paths, `launches_fp32`, `launches_search` and `launches_lifecycle`
+give each); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -54,16 +61,21 @@ BF16_FLOPS = 989e12              # H100 SXM, dense
 # dq / dk products, each a relative error up to 2^-9 per term.
 TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
 DEIT_S = (64, 197, 6, 64)        # B, N, H, d of the search step at batch 64
-# the attention shapes of the lifecycle's exported subnet (phase 6), by the
-# body that serves them in bf16
-SUBNET_RESIDENT = [(64, 197, 6, 32), (64, 197, 4, 48), (64, 197, 6, 16)]
-SUBNET_GENERAL = [(64, 197, 4, 40), (64, 197, 2, 24), (64, 197, 6, 56)]
-# the resident body: bf16, N <= 256, d a multiple of 16
+# the attention shapes of the lifecycle's exported subnet (phase 6); all
+# take the resident body in bf16, 40, 24 and 56 zero-padded to 48, 32, 64
+SUBNET = [(64, 197, 6, 32), (64, 197, 4, 48), (64, 197, 6, 16),
+          (64, 197, 4, 40), (64, 197, 2, 24), (64, 197, 6, 56)]
+# ragged shapes, head dims 8 * odd among them: 8 -> 16, 24 -> 32 and 40 ->
+# 48 in 64-column tiles (one fused backward kernel), 72 -> 80 and 120 ->
+# 128 in 128-column tiles (a dq and a dk/dv kernel)
+RAGGED = [(3, 17, 2, 16), (3, 17, 2, 8), (2, 33, 3, 24), (2, 70, 2, 40),
+          (2, 197, 2, 72), (2, 256, 2, 120)]
+# the resident body: bf16, N <= 256, d a multiple of 8, aligned rows
 RESIDENT = [DEIT_S, (2, 197, 6, 32), (2, 197, 3, 128), (2, 50, 4, 32),
-            (2, 256, 2, 64), (3, 17, 2, 16)] + SUBNET_RESIDENT
-# the general body: everything else, and DeiT-S when asked for by name
-GENERAL = [DEIT_S, (2, 257, 2, 64), (3, 17, 2, 16), (2, 33, 3, 24),
-           (2, 70, 2, 40)] + SUBNET_GENERAL + SUBNET_RESIDENT[:1]
+            (2, 256, 2, 64)] + RAGGED + SUBNET
+# the general body: more than 256 tokens, unaligned views and fp32; asked
+# for by name at the resident body's shapes too
+GENERAL = [DEIT_S, (2, 257, 2, 64)] + RAGGED + SUBNET
 TIMING = (256, 197, 6, 64)
 # fp32 logits of two forms of one model on the card, as max |a - b| over
 # max |b|: 12 blocks of fp32 sums in other orders (TF32 off)
@@ -87,6 +99,29 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters=20, warmup=3):
+    """Device time of one call of `fn`: the summed durations of the kernels
+    it launched over `iters` calls, from torch.profiler, divided by
+    `iters`. Unlike `cuda_time_ms` it leaves out the host's dispatch, which
+    at small shapes takes longer than the kernel and so sets the pace of
+    back-to-back calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / iters / 1e3
 
 
 def ptxas_report(log_text):
@@ -148,6 +183,9 @@ def check_kernels(A):
         ref = A.attention_bwd_reference(q.float(), k.float(), v.float(),
                                         do.float())
         tol = TOL[str(dtype).split(".")[-1]]
+        if not all(t.isfinite().all() for t in (o, lse, dq, dk, dv)):
+            raise AssertionError(f"the {body} body wrote values that are not "
+                                 f"finite at {shape} {dtype}")
         fwd = rel_err(o, ro)
         lse_err = (lse - rl).abs().max().item()
         bwd = [rel_err(g, r) for g, r in zip((dq, dk, dv), ref)]
@@ -203,20 +241,29 @@ def time_kernels(A):
                  ("general", "resident", "resident", "general")]
         ms = {body: sum(t for b, t in turns if b == body) / 2
               for body in ("general", "resident")}
+        dev = {body: device_time_ms(lambda: call(body))
+               for body in ("general", "resident")}
         t_bytes = bytes_[name] / HBM_BYTES_PER_S * 1e3
         t_ops = flops[name] / BF16_FLOPS * 1e3
         shared = dict(plain_ms=cuda_time_ms(plain[name]),
                       library_ms=cuda_time_ms(library[name]),
+                      plain_device_ms=device_time_ms(plain[name]),
+                      library_device_ms=device_time_ms(library[name]),
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations")
-        out[name] = dict(ms=ms["resident"], **shared)
-        out[name + "_general"] = dict(ms=ms["general"], **shared)
+        out[name] = dict(ms=ms["resident"], device_ms=dev["resident"],
+                         **shared)
+        out[name + "_general"] = dict(ms=ms["general"],
+                                      device_ms=dev["general"], **shared)
         log(f"timing {name} B={B} bf16: turns " +
             ", ".join(f"{b} {t:.4f}" for b, t in turns) + f" ms; resident "
             f"{ms['resident']:.4f} ms is {ms['general'] / ms['resident']:.2f}x "
             f"faster than general {ms['general']:.4f} ms; plain "
             f"{shared['plain_ms']:.4f} ms, sdpa {shared['library_ms']:.4f} "
-            f"ms, bound {shared['bound_ms']:.4f} ms ({shared['bound_by']})")
+            f"ms, bound {shared['bound_ms']:.4f} ms ({shared['bound_by']}); "
+            f"device time: resident {dev['resident']:.4f}, general "
+            f"{dev['general']:.4f}, plain {shared['plain_device_ms']:.4f}, "
+            f"sdpa {shared['library_device_ms']:.4f} ms")
         if ms["resident"] >= ms["general"]:
             raise AssertionError(f"{name}: the resident body is not faster "
                                  f"than the general one")
@@ -232,39 +279,88 @@ def time_kernels(A):
 
 
 def time_subnet_shapes(A):
-    """Phase 3, continued: the body that serves each attention shape of the
-    lifecycle's subnet, forward and backward, bf16, at batch 64 (phase 6's)
-    and 256 (the bench's), beside its bound."""
+    """Phase 3, continued: each attention shape of the lifecycle's subnet,
+    forward and backward, bf16, at batch 256 (the bench's): both bodies in
+    turns (general asked for by name), the plain twin and SDPA, beside the
+    bound, each also as device time; the serving body also at batch 64
+    (phase 6's)."""
     import torch
+    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for _, N, H, d in SUBNET_RESIDENT + SUBNET_GENERAL:
+    for _, N, H, d in SUBNET:
         body = A.attention_body(N, d, torch.bfloat16).name
         for B in (64, 256):
             q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen)
             do = torch.randn(q.shape, generator=gen,
                              device="cuda").to(torch.bfloat16)
             o, lse = A.attention_fwd(q, k, v)
-            t_f = cuda_time_ms(lambda: A.attention_fwd(q, k, v), iters=10)
-            t_b = cuda_time_ms(lambda: A.attention_bwd(q, k, v, o, lse, do),
-                               iters=10)
+            calls = {}
+            for b in ("resident", "general"):
+                calls["fwd_" + b] = lambda b=b: A.attention_fwd(q, k, v,
+                                                                body=b)
+                calls["bwd_" + b] = lambda b=b: A.attention_bwd(
+                    q, k, v, o, lse, do, body=b)
             elems = B * N * H * d
-            b_f = max(8 * elems / HBM_BYTES_PER_S,
-                      4 * B * H * N * N * d / BF16_FLOPS) * 1e3
-            b_b = max(14 * elems / HBM_BYTES_PER_S,
-                      10 * B * H * N * N * d / BF16_FLOPS) * 1e3
-            rows.append(dict(shape=[B, N, H, d], body=body, fwd_ms=t_f,
-                             bwd_ms=t_b, fwd_bound_ms=b_f, bwd_bound_ms=b_b))
-            log(f"timing subnet shape {(B, N, H, d)} bf16, {body} body: "
-                f"fwd {t_f:.4f} ms (bound {b_f:.4f}), bwd {t_b:.4f} ms "
-                f"(bound {b_b:.4f})")
+            row = dict(shape=[B, N, H, d], body=body,
+                       fwd_bound_ms=max(8 * elems / HBM_BYTES_PER_S,
+                                        4 * B * H * N * N * d / BF16_FLOPS)
+                       * 1e3,
+                       bwd_bound_ms=max(14 * elems / HBM_BYTES_PER_S,
+                                        10 * B * H * N * N * d / BF16_FLOPS)
+                       * 1e3)
+            if B == 64:
+                row.update(fwd_ms=cuda_time_ms(calls["fwd_" + body], iters=10),
+                           bwd_ms=cuda_time_ms(calls["bwd_" + body], iters=10))
+                rows.append(row)
+                log(f"timing subnet shape {(B, N, H, d)} bf16, {body} body: "
+                    f"fwd {row['fwd_ms']:.4f} ms (bound "
+                    f"{row['fwd_bound_ms']:.4f}), bwd {row['bwd_ms']:.4f} ms "
+                    f"(bound {row['bwd_bound_ms']:.4f})")
+                continue
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (qt, kt, vt))
+            so = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+            sdo = do.transpose(1, 2)
+            calls.update(
+                fwd_plain=lambda: A.attention_fwd_reference(q, k, v),
+                bwd_plain=lambda: A.attention_bwd_reference(q, k, v, do),
+                fwd_sdpa=lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, scale=1.0),
+                bwd_sdpa=lambda: torch.autograd.grad(
+                    so, (qg, kg, vg), sdo, retain_graph=True))
+            for n in ("fwd", "bwd"):
+                turns = [(b, cuda_time_ms(calls[f"{n}_{b}"], iters=10))
+                         for b in ("general", "resident", "resident",
+                                   "general")]
+                for b in ("resident", "general"):
+                    row[f"{n}_{b}_ms"] = sum(t for x, t in turns
+                                             if x == b) / 2
+                for b in ("plain", "sdpa"):
+                    row[f"{n}_{b}_ms"] = cuda_time_ms(calls[f"{n}_{b}"],
+                                                      iters=10)
+                row[n + "_ms"] = row[f"{n}_{body}_ms"]
+            for key, call in calls.items():
+                row[key + "_device_ms"] = device_time_ms(call, iters=10)
+            rows.append(row)
+            log(f"timing subnet shape {(B, N, H, d)} bf16 ({body} body "
+                f"serves it), ms (device ms): " + "; ".join(
+                    f"{n} " + ", ".join(
+                        f"{b} {row[f'{n}_{b}_ms']:.4f} "
+                        f"({row[f'{n}_{b}_device_ms']:.4f})"
+                        for b in ("resident", "general", "plain", "sdpa"))
+                    + f", bound {row[n + '_bound_ms']:.4f}"
+                    for n in ("fwd", "bwd")))
     return rows
 
 
-def check_against_cpu():
+def check_against_cpu(A):
     """Phase 4: the port's DeiT-S (full width, 12 blocks) forward and
     gradients on the card (fp32, CUDA kernels) against the same model on
-    the CPU (fp32, plain twins), on 2 images with a fixed mask."""
+    the CPU (fp32, plain twins), on 2 images with a fixed mask. Returns the
+    launches of the card's pass, counted from 0: the fp32 path, which the
+    general body serves."""
     import torch
     from ofb_tpu_torch.models.mim_vit import mim_forward
     from ofb_tpu_torch.models.registry import create_model
@@ -277,6 +373,7 @@ def check_against_cpu():
         bundle = create_model("deit_small_patch16_224_mim", device=dev,
                               patch_search=True)
         params, alphas, arch = bundle.init(0)
+        A.reset_launch_counts()
         out = mim_forward(params, alphas, arch, x.to(dev), bundle.cfg,
                           bundle.space, train=True, use_mim=True,
                           token_mask=mask.to(dev),
@@ -287,6 +384,8 @@ def check_against_cpu():
                  if p.grad is not None]
         res[dev] = (out.logits.detach().cpu(), out.decoder_loss.item(),
                     torch.cat(grads).cpu())
+    by_body = {"attention_fwd": dict(A.attention_fwd.by_body),
+               "attention_bwd": dict(A.attention_bwd.by_body)}
     (lc, dc, gc), (lg, dg, gg) = res["cpu"], res["cuda"]
     # fp32 on both devices; 12 blocks of other summation orders
     e_logits = rel_err(lg, lc)[1]
@@ -296,6 +395,13 @@ def check_against_cpu():
     if not (e_logits < 1e-3 and abs(dg - dc) <= 1e-4 * abs(dc)
             and e_grads < 1e-3 and math.isfinite(dg)):
         raise AssertionError("the port on the card disagrees with the CPU")
+    took = {"resident": 0, "general": 12}
+    if by_body != {"attention_fwd": took, "attention_bwd": took}:
+        raise AssertionError(f"fp32 launches by body {by_body}, expected "
+                             f"{took} each")
+    log(f"reference: launches by body {by_body}")
+    return {**{k: by["resident"] for k, by in by_body.items()},
+            **{k + "_general": by["general"] for k, by in by_body.items()}}
 
 
 def run_slice(A, steps=3):
@@ -503,11 +609,16 @@ def run_lifecycle(A, card, steps=3):
         raise AssertionError(
             f"subnet launches by body: train {got_train} (expected "
             f"{want_train}), eval {got_eval} (expected {want_eval})")
-    if blocks["general"] == 0 or blocks["resident"] == 0:
-        raise AssertionError(f"the subnet is not of mixed geometry: {blocks}")
+    odd = [d for _, d, _ in dcfg.block_overrides if d % 16]
+    if blocks != {"resident": cfg.depth, "general": 0} or not odd \
+            or len(odd) == cfg.depth:
+        raise AssertionError(f"the subnet's blocks by body {blocks}, head "
+                             f"dims 8 * odd {odd}: expected every block "
+                             f"resident and a mixed geometry")
     log(f"lifecycle subnet: D {dcfg.embed_dim}, blocks (heads, head dim, "
         f"mlp) {list(dcfg.block_overrides)}; {blocks['resident']} blocks "
-        f"take the resident body, {blocks['general']} the general; launches "
+        f"take the resident body ({len(odd)} of them at head dims 8 * odd), "
+        f"{blocks['general']} the general; launches "
         f"over {micro} train microbatches {got_train}, over {micro} eval "
         f"batches {got_eval}")
     log(f"lifecycle subnet rates on {card}, batch {batch}, bf16: train step "
@@ -547,7 +658,7 @@ def main():
     errs = check_kernels(A)
     times = time_kernels(A)
     subnet_times = time_subnet_shapes(A)
-    check_against_cpu()
+    fp32 = check_against_cpu(A)
     launches = run_slice(A)
     lifecycle = run_lifecycle(A, smi)
 
@@ -560,7 +671,8 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
             replaces=f"{ATTN_SRC}:{line}",
-            launches=launches[name] + lifecycle[name],
+            launches=fp32[name] + launches[name] + lifecycle[name],
+            launches_fp32=fp32[name],
             launches_search=launches[name],
             launches_lifecycle=lifecycle[name],
             max_abs_err=errs[name], **times[name]))

@@ -93,8 +93,8 @@ def build_step(model: str, batch: int, *, device="cuda", seed: int = 0):
 # Cells the forced convergence picks, DeiT geometry (head grid 2 | 4 | 6,
 # channel grid 16..64 in steps of 8, 7 MLP cells): (attention cell (heads,
 # channels), MLP cell) per block, repeated over the depth. Head dims 64
-# (full), 40, 32, 48, 24, 56 and 16: 24, 40 and 56 are 8 * odd and take the
-# general attention body in the exported subnet.
+# (full), 40, 32, 48, 24, 56 and 16: 24, 40 and 56 are 8 * odd, which the
+# resident attention body runs zero-padded to the next multiple of 16.
 FORCED_CELLS = (((2, 6), 6), ((1, 3), 4), ((2, 2), 3), ((1, 4), 5),
                 ((0, 1), 2), ((2, 5), 4), ((2, 0), 3))
 FORCED_EMBED_CELL = 12           # of 17: 336 of DeiT-S's 384 channels

@@ -1,9 +1,10 @@
 // Attention backward for Hopper (sm_90a): dq, dk, dv of o = softmax(q kᵀ) v,
 // the general body, for every shape and type the wrapper takes. (bf16 with
-// at most 256 tokens, a head dim that is a multiple of 16 and 16-byte
-// aligned rows goes to attention_bwd_resident.cu, several times faster at
-// the search step's shapes (PERF.md); ops/attention.py `attention_body`
-// decides.)
+// at most 256 tokens and 16-byte aligned rows, at every head dim, goes to
+// attention_bwd_resident.cu, several times faster at the search step's and
+// the exported subnets' shapes (PERF.md); ops/attention.py `attention_body`
+// decides. This body keeps more than 256 tokens, unaligned views and
+// fp32.)
 //
 // Replaces the TPU kernel ofb_tpu/ops/pallas_attention.py `_bwd_kernel`
 // (launched by `_mha_bwd_pallas`, grid (B, H)). Same math, no scale inside:

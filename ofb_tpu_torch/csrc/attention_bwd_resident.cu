@@ -1,10 +1,12 @@
 // Attention backward for Hopper (sm_90a): dq, dk, dv of o = softmax(q kᵀ) v,
-// the resident body, bf16, up to 256 tokens, 16-byte aligned rows.
+// the resident body, bf16, up to 256 tokens, head dims 8 to 128 in steps of
+// 8, 16-byte aligned rows.
 //
 // Replaces the TPU kernel ofb_tpu/ops/pallas_attention.py `_bwd_kernel`
 // (launched by `_mha_bwd_pallas`, grid (B, H)) at the shapes the search
-// step runs (DeiT: N = 197, d = 64); attention_bwd.cu keeps the general
-// body for everything else. Same math, no scale inside:
+// step and the exported subnets run (DeiT: N = 197, d = 64 and the subnets'
+// 16 .. 64 in steps of 8); attention_bwd.cu keeps the general body for more
+// than 256 tokens, unaligned views and fp32. Same math, no scale inside:
 //   p  = softmax(q kᵀ) = exp(q kᵀ − lse)    lse from the forward, fp32
 //   dv = pᵀ do                               p rounded to bf16
 //   dp = do vᵀ                               fp32
@@ -46,6 +48,12 @@
 //     dq kernel holds K and V whole and streams tiles of q and do through
 //     two buffers (o through one), a tile ahead; it writes delta out for the
 //     dk/dv kernel, which holds Q and dO whole and streams tiles of k and v.
+//   * Head dims 8 * odd run as the next multiple of 16 (sm90.cuh): the
+//     copies write zeros into the 8 columns past d of q, k, v, do and o, the
+//     four K-major products (q kᵀ, do vᵀ and their transposes) take
+//     ceil(d / 16) k-steps over them, and delta and the stores stay over d
+//     columns. d = 24, 40, 56 pad to 32, 48, 64 and take the fused kernel;
+//     d = 72 .. 120 pad to 80 .. 128 and take the two kernels.
 //   * q kᵀ and do vᵀ are computed in both passes: 7 products for the 5 the
 //     math needs. Sharing them would need ds in both orientations, that is a
 //     transpose through shared memory; the arithmetic is not the bound.
@@ -142,7 +150,7 @@ attention_bwd_dq_resident_kernel(const bf16* __restrict__ q,
   const bf16* obh = o + b * so.b + h * so.h;
   const bf16* dobh = dout + b * sdo.b + h * sdo.h;
   const long long bh = static_cast<long long>(b) * H + h;
-  const int ksteps = d >> 4, cpr = d >> 3;
+  const int ksteps = (d + 15) >> 4, cpr = d >> 3;
 
   auto load_tile = [&](int t) {              // q, do rows 64 t ..
     const uint32_t T = Ts + (t & 1) * 2 * T_BYTES;
@@ -295,7 +303,7 @@ attention_bwd_dkdv_resident_kernel(const bf16* __restrict__ q,
   const bf16* vbh = v + b * sv.b + h * sv.h;
   const bf16* dobh = dout + b * sdo.b + h * sdo.h;
   const long long bh = static_cast<long long>(b) * H + h;
-  const int ksteps = d >> 4;
+  const int ksteps = (d + 15) >> 4;
 
   auto load_tile = [&](int t) {              // k, v rows 64 t ..
     const uint32_t T = Ts + (t & 1) * 2 * T_BYTES;
@@ -370,7 +378,7 @@ attention_bwd_fused_kernel(const bf16* __restrict__ q,
 
   const int h = blockIdx.x, b = blockIdx.y;
   const long long bh = static_cast<long long>(b) * H + h;
-  const int ksteps = d >> 4, cpr = d >> 3;
+  const int ksteps = (d + 15) >> 4, cpr = d >> 3;
 
   load_rows_async<DP>(Qs, NR, 0, q + b * sq.b + h * sq.h, sq.n, 0, NR, N, d);
   load_rows_async<DP>(Ks, NR, 0, k + b * sk.b + h * sk.h, sk.n, 0, NR, N, d);
@@ -519,7 +527,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 // bf16 only. strides: 15 element strides, (batch, token, head) for q, k, v,
 // o, do. lse and delta are contiguous (B, H, N) fp32 (delta is scratch the
 // call fills); dq, dk, dv are contiguous (B, N, H, d). Takes 1 <= N <= 256,
-// d a multiple of 16 up to 128, 16-byte aligned rows, and B, H within the
+// d a multiple of 8 up to 128, 16-byte aligned rows, and B, H within the
 // grid's limits; returns -1 for anything else, else cudaGetLastError()
 // after the launches.
 extern "C" int ofb_attention_bwd_resident(const void* q, const void* k,
@@ -531,7 +539,7 @@ extern "C" int ofb_attention_bwd_resident(const void* q, const void* k,
                                           void* stream) {
   using namespace ofb::sm90;
   const void* ptrs[5] = {q, k, v, o, dout};
-  if (N < 1 || N > 256 || d < 16 || d > 128 || d % 16 != 0 || B < 1 ||
+  if (N < 1 || N > 256 || d < 8 || d > 128 || d % 8 != 0 || B < 1 ||
       B > 65535 || H < 1 || !aligned_16(ptrs, strides, 5))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

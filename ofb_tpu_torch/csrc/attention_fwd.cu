@@ -6,11 +6,12 @@
 // already scaled; scores, row max and row sums are fp32; p is rounded to
 // v's type before p @ v; o keeps the input type. No mask, no dropout.
 //
-// Which calls come here. bf16 with at most 256 tokens, a head dim that is a
-// multiple of 16 and 16-byte aligned rows (the search step's shapes) goes
-// to the resident body in attention_fwd_resident.cu, several times faster
-// there (PERF.md); ops/attention.py `attention_body` decides. This body keeps
-// the rest: more than 256 tokens, head dims 8 * odd, unaligned views, fp32.
+// Which calls come here. bf16 with at most 256 tokens and 16-byte aligned
+// rows, at every head dim (the search step's and the exported subnets'
+// shapes, 8 * odd head dims included), goes to the resident body in
+// attention_fwd_resident.cu, several times faster there (PERF.md);
+// ops/attention.py `attention_body` decides. This body keeps the rest:
+// more than 256 tokens, unaligned views, fp32.
 //
 // Bound. At the DeiT-S search-step shapes (N = 197, H = 6, d = 64, bf16)
 // the work is 4 B H N² d flops against 4 B N H d * 2 bytes of q, k, v, o:

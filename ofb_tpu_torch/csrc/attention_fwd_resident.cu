@@ -1,13 +1,15 @@
 // Attention forward, o = softmax(q kᵀ) v, for Hopper (sm_90a): the
-// resident body, bf16, up to 256 keys, 16-byte aligned rows.
+// resident body, bf16, up to 256 keys, head dims 8 to 128 in steps of 8,
+// 16-byte aligned rows.
 //
 // Replaces the TPU kernel ofb_tpu/ops/pallas_attention.py `_fwd_kernel`
 // (launched by `_mha_fwd_pallas`, grid (B, H)) at the shapes the search
-// step runs (DeiT: N = 197, d = 64); attention_fwd.cu keeps the general
-// body for everything else. Same function: q arrives already scaled;
-// scores, row max and row sums are fp32; p = e / sum is rounded to v's type
-// before p v; o keeps the input type; the row log-sum-exp goes out as fp32
-// (B, H, N) for the backward.
+// step and the exported subnets run (DeiT: N = 197, d = 64 and the subnets'
+// 16 .. 64 in steps of 8); attention_fwd.cu keeps the general body for more
+// than 256 keys, unaligned views and fp32. Same function: q arrives already
+// scaled; scores, row max and row sums are fp32; p = e / sum is rounded to
+// v's type before p v; o keeps the input type; the row log-sum-exp goes out
+// as fp32 (B, H, N) for the backward.
 //
 // Bound. 4 B H N² d flops against 4 B N H d * 2 bytes of q, k, v, o: about
 // 100 flops a byte at N = 197, under the H100's ~295 bf16 flops a byte, so
@@ -35,6 +37,11 @@
 //     skipped.
 //   * o (64 x d fp32 in registers) is rounded to bf16, staged through the
 //     query buffer it came from and written with 16-byte stores.
+//   * Head dims 8 * odd (24, 40, 56 in exported subnets) run as the next
+//     multiple of 16: the copies write zeros into the 8 columns past d
+//     (sm90.cuh), q kᵀ takes ceil(d / 16) k-steps over them, and o's extra
+//     8 columns are never stored. The padded k-step is a third, a fifth or a
+//     seventh more tensor work at d = 24, 40, 56; the bytes do not grow.
 //   * The ragged edge: 197 = 3 x 64 + 5, and the fourth query tile is a
 //     full `wgmma` tile with 59 dead rows (zeros in, nothing out). The whole
 //     head then costs 256 x 208 score positions for 197², 1.37x the tensor
@@ -79,7 +86,7 @@ attention_fwd_resident_kernel(const bf16* __restrict__ q,
   const bf16* kbh = k + b * sk.b + h * sk.h;
   const bf16* vbh = v + b * sv.b + h * sv.h;
   const long long bh = static_cast<long long>(b) * H + h;
-  const int ntiles = (N + ROWS - 1) / ROWS, ksteps = d >> 4;
+  const int ntiles = (N + ROWS - 1) / ROWS, ksteps = (d + 15) >> 4;
 
   // copies, in the order they are waited for: k and the first query tile,
   // v, the second query tile
@@ -221,7 +228,7 @@ int launch_fwd_keys(const void* q, const void* k, const void* v, void* o,
 
 // bf16 only. strides: 9 element strides, (batch, token, head) for q, k, v.
 // o is contiguous (B, N, H, d), lse contiguous (B, H, N) fp32. Takes
-// 1 <= N <= 256, d a multiple of 16 up to 128, 16-byte aligned rows, and
+// 1 <= N <= 256, d a multiple of 8 up to 128, 16-byte aligned rows, and
 // B, H within the grid's limits; returns -1 for anything else, else
 // cudaGetLastError() after the launch.
 extern "C" int ofb_attention_fwd_resident(const void* q, const void* k,
@@ -231,7 +238,7 @@ extern "C" int ofb_attention_fwd_resident(const void* q, const void* k,
                                           void* stream) {
   using namespace ofb::sm90;
   const void* ptrs[3] = {q, k, v};
-  if (N < 1 || N > 256 || d < 16 || d > 128 || d % 16 != 0 || B < 1 ||
+  if (N < 1 || N > 256 || d < 8 || d > 128 || d % 8 != 0 || B < 1 ||
       B > 65535 || H < 1 || !aligned_16(ptrs, strides, 3))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

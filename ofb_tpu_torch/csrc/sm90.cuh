@@ -14,9 +14,13 @@
 //   * MN-major B ("summed rows x head dim"): v in p v, k in ds k, do in
 //     pᵀ do, q in dsᵀ q. A k-step is 16 rows = 2048 bytes; the instruction's
 //     N is DP, its two 64-column halves one panel apart.
-// Columns at or past the real head dim d are never loaded: K-major products
-// stop at d / 16 k-steps, and MN-major products only spill them into output
-// columns that are never stored.
+// The head dim d is a multiple of 8; K-major products run ceil(d / 16)
+// k-steps, so they read columns up to d16 = 16 ceil(d / 16). Columns d ..
+// d16 - 1 (8 of them when d = 8 * odd) are written as zeros at every tile
+// load, in both operands of a K-major product: stale shared memory may hold
+// Inf or NaN bits, and 0 * NaN = NaN. Columns at or past d16 are never
+// loaded: no K-major product reads them, and MN-major products only spill
+// them into output columns that are never stored.
 //
 // Fragments (m64nNk16, fp32 sums, warpgroup of 128 threads): thread t holds
 // rows r0 = 16 (t / 32) + (t % 32) / 4 and r0 + 8; of the 8-column block j
@@ -91,11 +95,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // Start the copy of rows row0 .. row0 + nrows - 1 of one (batch, head)
-// (src points at its row 0, stride_n elements a row) into rows dst_row0 ..
-// of the tile at shared address `tile`. Rows at or past N become zeros.
-// Needs 16-byte aligned rows: src % 16 bytes == 0, stride_n % 8 == 0.
-// All threads of the block take part, dealt out over DP / 8 chunks a row (a
-// power of two), those past d idle.
+// (src points at its row 0, stride_n elements a row, d a multiple of 8)
+// into rows dst_row0 .. of the tile at shared address `tile`. Rows at or
+// past N, and the chunks of columns d .. d16 - 1, become zeros (a copy of 0
+// bytes from the row's first chunk). Needs 16-byte aligned rows: src % 16
+// bytes == 0, stride_n % 8 == 0. All threads of the block take part, dealt
+// out over DP / 8 chunks a row (a power of two), those at or past d16 idle.
 template <int DP>
 __device__ __forceinline__ void load_rows_async(uint32_t tile, int rows,
                                                 int dst_row0, const bf16* src,
@@ -103,13 +108,14 @@ __device__ __forceinline__ void load_rows_async(uint32_t tile, int rows,
                                                 int nrows, int N, int d) {
   constexpr int CPR = DP / 8;
   const int c = threadIdx.x % CPR;
-  if (c * 8 >= d) return;
+  if (c * 8 >= ((d + 15) & ~15)) return;
+  const bool in_row = c * 8 < d;
   for (int r = threadIdx.x / CPR; r < nrows; r += blockDim.x / CPR) {
     const int n = row0 + r;
     const bf16* g = src + static_cast<long long>(n < N ? n : N - 1) * stride_n
-        + c * 8;
+        + (in_row ? c * 8 : 0);
     cp_async_16(tile + chunk_offset(rows, dst_row0 + r, c), g,
-                n < N ? 16 : 0);
+                n < N && in_row ? 16 : 0);
   }
 }
 

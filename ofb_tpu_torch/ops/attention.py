@@ -16,12 +16,15 @@ repeat the kernels' arithmetic. Each wrapper counts its launches in
 
 Two kernel bodies, both hand-written. `resident` (csrc/*_resident.cu) keeps
 a whole head's K and V (or Q and dO) in shared memory and the scores in
-`wgmma` registers; it takes bf16, up to 256 tokens, a head dim that is a
-multiple of 16 and rows that start on 16 bytes. `general` (csrc/
+`wgmma` registers; it takes bf16, up to 256 tokens, every head dim the
+wrappers take (a multiple of 8 up to 128; 8 * odd ones, such as the 24, 40
+and 56 of exported subnets, run zero-padded to the next multiple of 16 in
+shared memory) and rows that start on 16 bytes. `general` (csrc/
 attention_fwd.cu, attention_bwd.cu) tiles both sides and takes every shape
-and type the wrappers accept. `attention_body` picks one from the shape,
-the type and the alignment alone; a body that fails to build or launch
-raises, nothing reroutes.
+and type the wrappers accept; it serves what the resident body does not:
+more than 256 tokens, unaligned views, fp32. `attention_body` picks one
+from the shape, the type and the alignment alone; a body that fails to
+build or launch raises, nothing reroutes.
 
 Layout is the model's own (B, N, H, d) on both sides. q, k, v may be
 strided views (the search step hands in views of the qkv buffer); the
@@ -124,17 +127,19 @@ def _aligned16(t) -> bool:
 
 def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     """Which kernel body serves (N tokens, head dim d, dtype), from the
-    shape, the type and the rows' 16-byte alignment alone. The resident
-    body's numbers repeat the arithmetic of csrc/attention_*_resident.cu:
+    shape, the type and the rows' 16-byte alignment alone: bf16, 1 <= N <=
+    256, d a multiple of 8 in [8, 128] and aligned rows take the resident
+    body. Its numbers repeat the arithmetic of csrc/attention_*_resident.cu:
     the forward's keys padded to 64 * ceil(N / 64), or to 208 for
-    192 < N <= 208; tiles of 64 or 128 head-dim columns; 1024 bytes of
-    alignment slack. The backward is one fused kernel for d <= 64 (q, k, v,
-    do, o in whole 64-row tiles, three output stages, lse and delta) and a
-    dq and a dk/dv kernel above (the resident side padded to 16)."""
-    if dtype != torch.bfloat16 or not 1 <= N <= 256 or d % 16 != 0 \
-            or not 16 <= d <= 128 or not aligned:
+    192 < N <= 208; tiles of 64 head-dim columns when d16 = 16 * ceil(d /
+    16) <= 64, else 128; 1024 bytes of alignment slack. The backward is one
+    fused kernel for d16 <= 64 (q, k, v, do, o in whole 64-row tiles, three
+    output stages, lse and delta) and a dq and a dk/dv kernel above (the
+    resident side padded to 16)."""
+    if dtype != torch.bfloat16 or not 1 <= N <= 256 or d % 8 != 0 \
+            or not 8 <= d <= 128 or not aligned:
         return Body("general", 0, 0, 0)
-    dp = 64 if d <= 64 else 128
+    dp = 64 if d <= 64 else 128                          # d16 <= 64
     tile = 64 * dp * 2                                   # 64 rows, bf16
     rows64 = 64 * -(-N // 64)                            # whole 64-row tiles
     keys = 208 if 192 < N <= 208 else rows64

@@ -25,6 +25,7 @@ from ofb_tpu_torch.ops import attention as A
 
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-5, 2e-6
+BF16, F32 = torch.bfloat16, torch.float32
 
 
 def qkv(B=2, N=17, H=3, d=16, seed=0):
@@ -39,7 +40,8 @@ def close(a, b):
 
 
 @pytest.mark.parametrize("shape", [(2, 17, 3, 16), (1, 24, 2, 24),
-                                   (2, 9, 1, 40)])
+                                   (2, 9, 1, 40), (1, 12, 2, 56),
+                                   (1, 197, 1, 72)])
 def test_forward_matches_jax_reference_and_pallas(shape):
     q, k, v = qkv(*shape)
     scale = 0.25
@@ -86,6 +88,53 @@ def test_backward_twin_matches_pallas_bwd_kernel():
         close(g, np.asarray(w).transpose(0, 2, 1, 3))
 
 
+@pytest.mark.parametrize("shape", [(1, 12, 2, 56), (1, 197, 1, 72)])
+def test_backward_twin_matches_pallas_bwd_kernel_at_wider_heads(shape):
+    """The exported subnets' widest 8 * odd head dim and one past 64 (the
+    resident body's two-kernel backward), at DeiT's 197 tokens."""
+    q, k, v = qkv(*shape, seed=8)
+    do = qkv(*shape, seed=9)[0]
+    want = JA._mha_bwd_pallas(*(x.transpose(0, 2, 1, 3) for x in (q, k, v, do)),
+                              interpret=True)
+    got = A.attention_bwd_reference(*map(torch.from_numpy, (q, k, v, do)))
+    for g, w in zip(got, want):
+        close(g, np.asarray(w).transpose(0, 2, 1, 3))
+
+
+def _pad16(x):
+    """x with its head dim zero-padded to the next multiple of 16."""
+    d = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, -d % 16))
+
+
+@pytest.mark.parametrize("N,d", [(17, 8), (33, 24), (197, 40), (70, 56),
+                                 (197, 72), (9, 120)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_zero_padded_head_dim_reproduces_the_twins(N, d, dtype):
+    """The invariant the resident kernels rely on for head dims 8 * odd:
+    q, k, v and do zero-padded to d16 = 16 * ceil(d / 16) give, sliced back
+    to d columns, the forward and backward of the unpadded inputs, and
+    zeros in the padded columns of every output. fp32 to the file's
+    tolerance; bf16 to 1e-2, since p and ds are rounded to bf16 and a score
+    that moves by one fp32 step (the sums over d run in another order) may
+    round the other way."""
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in qkv(2, N, 2, d, seed=10))
+    do = torch.from_numpy(qkv(2, N, 2, d, seed=11)[0]).to(dtype)
+    qp, kp, vp, dop = map(_pad16, (q, k, v, do))
+    assert qp.shape[-1] % 16 == 0 and qp.shape[-1] - d in (0, 8)
+    o, lse = A.attention_fwd_reference(q, k, v)
+    op, lsep = A.attention_fwd_reference(qp, kp, vp)
+    tol = dict(rtol=RTOL, atol=ATOL) if dtype == F32 else dict(rtol=1e-2,
+                                                               atol=1e-2)
+    torch.testing.assert_close(op[..., :d], o, **tol)
+    torch.testing.assert_close(lsep, lse, rtol=RTOL, atol=ATOL)
+    got = A.attention_bwd_reference(qp, kp, vp, dop)
+    for gp, g in zip(got, A.attention_bwd_reference(q, k, v, do)):
+        torch.testing.assert_close(gp[..., :d], g, **tol)
+        assert not gp[..., d:].any()
+    assert not op[..., d:].any()
+
+
 def test_strided_views_of_qkv_and_runtime_scale():
     """The search step hands in views of the (B, N, 3, H, d) qkv buffer and
     a 0-d scale tensor that prune events rewrite."""
@@ -113,20 +162,26 @@ def test_cpu_path_counts_no_launch_and_bad_inputs_raise():
         A._check(q, k[:, :5], v)
 
 
-BF16, F32 = torch.bfloat16, torch.float32
-
 
 @pytest.mark.parametrize("N,d,dtype,aligned,want", [
     (197, 64, BF16, True, "resident"),       # DeiT-T/S/B on the search step
     (197, 32, BF16, True, "resident"),
     (50, 32, BF16, True, "resident"),        # a Swin window and its cls
     (256, 128, BF16, True, "resident"),      # the largest it takes
-    (1, 16, BF16, True, "resident"),         # the smallest
+    (1, 16, BF16, True, "resident"),
+    (1, 8, BF16, True, "resident"),          # the smallest
+    (197, 24, BF16, True, "resident"),       # d = 8 * odd, padded to 32
+    (197, 8, BF16, True, "resident"),
+    (197, 40, BF16, True, "resident"),       # exported subnets' head dims
+    (197, 56, BF16, True, "resident"),
+    (197, 72, BF16, True, "resident"),       # padded to 80, 128-column tiles
     (257, 64, BF16, True, "general"),        # more keys than one pass holds
-    (197, 24, BF16, True, "general"),        # d = 8 * odd
-    (197, 8, BF16, True, "general"),
+    (257, 40, BF16, True, "general"),
     (197, 64, F32, True, "general"),         # fp32 stays off the tensor cores
+    (197, 40, F32, True, "general"),
     (197, 64, BF16, False, "general"),       # rows not on 16 bytes
+    (197, 24, BF16, False, "general"),       # unaligned 8 * odd views
+    (197, 56, BF16, False, "general"),
 ])
 def test_body_choice_by_shape_type_and_alignment(N, d, dtype, aligned, want):
     body = A.attention_body(N, d, dtype, aligned)
@@ -143,12 +198,12 @@ def test_resident_forward_pads_keys(N, keys):
     assert body.padded_keys == keys >= N and keys % 16 == 0
 
 
-@pytest.mark.parametrize("d", range(16, 129, 16))
+@pytest.mark.parametrize("d", range(8, 129, 8))
 def test_resident_shared_memory_fits_a_block(d):
     """Every shape the resident body takes asks for no more shared memory
     than a Hopper block may have, and for what the kernels lay out: K and V
     (or Q and dO) whole, the streamed 64-row tiles, the row terms, 1024
-    bytes of slack."""
+    bytes of slack. Head dims 8 * odd lay out as the next multiple of 16."""
     dp = 64 if d <= 64 else 128
     for N in range(1, 257):
         body = A.attention_body(N, d, BF16)
