@@ -19,7 +19,8 @@ which raises (and so exits non-zero) on failure:
      batch 64; then at each attention shape of the exported subnet, batch
      256: resident, general (asked for by name), twin and SDPA. Each of
      these also as device time (torch.profiler: the kernels' summed
-     durations, the host's dispatch left out);
+     durations, the host's dispatch left out; a session that lost kernel
+     records is run again);
   4. reference: the port's DeiT-S forward and backward on the card (fp32,
      kernels) against the same model on the CPU (fp32, plain twins); the
      card's pass is a driven path of its own, counted from 0: 12 + 12
@@ -38,17 +39,31 @@ which raises (and so exits non-zero) on failure:
      and eval steps on the subnet in bf16, their attention launches
      counted from 0 and held, body by body, to what `attention_body`
      predicts for each block's (N, d): all 12 blocks, head dims 24, 40 and
-     56 among them, through the resident body, none through the general.
+     56 among them, through the resident body, none through the general;
+  7. the CLIs, in process through each one's parser and `main`, DeiT-S at
+     full width and depth, batch 64, bf16, SYNTHETIC data at staging 256:
+     `cli.search` (fused RandAugment m9 + erasing, Mixup / CutMix after the
+     finish, compress threshold 1.0; 4 epochs: search, the finish,
+     postsearch, the fuse of the best checkpoint), a resumed fifth epoch,
+     `cli.export` of the best checkpoint, one `cli.finetune` epoch of the
+     subnet (EMA, device cache) and `cli.eval` of its best. Checks the
+     artifacts, log.txt's keys against the JAX CLI's, finite losses,
+     accuracies in [0, 100], and each run's attention launches counted from
+     0 against what `attention_body` predicts (all resident, none general);
+     prints each run's sustained epoch img/s and the split of its epochs,
+     the compress passes' host ms, and the device time of
+     `apply_train_augment` at batch 256 next to the search step's.
 
-The line before the last is the kernels' JSON (`launches` sums the three
-driven paths, `launches_fp32`, `launches_search` and `launches_lifecycle`
-give each); the last line is
+The line before the last is the kernels' JSON (`launches` sums the four
+driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle` and
+`launches_cli` give each); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,33 +116,94 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters=20, warmup=3):
+# profiler sessions of `device_time_ms`, by how each was judged, and the
+# times that fell back to `queued_time_ms`
+SESSIONS = {"whole": 0, "agreed": 0, "dropped": 0, "queued": 0}
+
+
+def device_time_ms(fn, iters=20, warmup=3, tries=3):
     """Device time of one call of `fn`: the summed durations of the kernels
     it launched over `iters` calls, from torch.profiler, divided by
     `iters`. Unlike `cuda_time_ms` it leaves out the host's dispatch, which
     at small shapes takes longer than the kernel and so sets the pace of
-    back-to-back calls."""
+    back-to-back calls.
+
+    A profiler session on the card can lose some or all of its kernel
+    records. A session is taken when its kernel count is a whole multiple
+    of `iters` (what a `fn` that launches the same kernels at every call
+    gives), or when it counts within 1% of an earlier session's (a `fn`
+    whose launches vary a little from call to call); otherwise it is
+    dropped and run again, up to `tries` sessions. If none is taken, the
+    time is `queued_time_ms`'s. The log gives the counts of every call
+    that needed more than one session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / iters / 1e3
+    counts = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = sum(e.count for e in kernels)
+        us = sum(e.device_time_total for e in kernels)
+        counts.append(n)
+        taken = None
+        if n > 0 and us > 0:
+            if n % iters == 0:
+                taken = "whole"
+            elif any(abs(m - n) <= m // 100 for m in counts[:-1]):
+                taken = "agreed"
+        if taken:
+            SESSIONS[taken] += 1
+            if len(counts) > 1:
+                log(f"device time: sessions of {iters} calls counted "
+                    f"{counts} kernels; the last taken ({taken})")
+            return us / iters / 1e3
+        SESSIONS["dropped"] += 1
+    ms = queued_time_ms(fn, iters)
+    SESSIONS["queued"] += 1
+    log(f"device time: sessions of {iters} calls counted {counts} kernels, "
+        f"none taken; {ms:.4f} ms from queued_time_ms used")
+    return ms
+
+
+def queued_time_ms(fn, iters):
+    """CUDA-event time of one of `iters` calls that the host queued while
+    the card ran a sleeping kernel, so that they run back to back: the
+    device's time with the gaps between its kernels, the host's dispatch
+    left out (unless `fn` waits for the card)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10 ** 7 / start.elapsed_time(end)
+    torch.cuda._sleep(int(3 * host_ms * cycles_per_ms) + 1)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def ptxas_report(log_text):
     """One line a kernel from nvcc's `-Xptxas -v` output: its name with its
     template arguments, registers a thread and spilled bytes."""
-    import re
     name = None
     spills = ""
     for line in log_text.splitlines():
@@ -631,6 +707,216 @@ def run_lifecycle(A, card, steps=3):
             "attention_bwd_general": totals["attention_bwd"]["general"]}
 
 
+# log.txt keys of the JAX package's scripts/search.py: a search epoch and a
+# postsearch epoch (the step's metrics, the epoch's time and rate, the soft
+# accuracy, the epoch and the searched size)
+_TAIL = {"train_epoch_time_s", "train_img_s", "soft_test_loss",
+         "soft_test_acc1", "soft_test_acc5", "epoch", "n_parameters",
+         "n_gflops"}
+LOG_KEYS_SEARCH = _TAIL | {f"train_{k}" for k in (
+    "loss_param", "loss_total", "loss_arch", "loss_decoder",
+    "searched_gflops", "grad_norm")}
+LOG_KEYS_POSTSEARCH = _TAIL | {f"train_{k}" for k in (
+    "loss_param", "loss_total", "grad_norm")}
+
+
+def run_cli(A, module, argv):
+    """One CLI run in this process through its own parser and `main`, its
+    attention launches counted from 0. Returns (main's result, the printed
+    text, launches by kernel and body, seconds)."""
+    import torch
+    from ofb_tpu_torch.cli.common import run_main
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, text = run_main(module, argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"attention_fwd": dict(A.attention_fwd.by_body),
+              "attention_bwd": dict(A.attention_bwd.by_body)}
+    A.reset_launch_counts()
+    return out, text, counts, dt
+
+
+def _epochs(text):
+    """(epoch, img/s, feed, dispatch, readback, compress seconds) of every
+    epoch line a CLI printed."""
+    from ofb_tpu_torch.core.engine import epoch_lines
+    return [tuple(e.values()) for e in epoch_lines(text)]
+
+
+def _log(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.startswith("{")]
+
+
+def _expect_counts(got, fwd, bwd, where):
+    """All launches through the resident body, as `attention_body` picks it
+    for every bf16 shape of these runs (N <= 197, d a multiple of 8)."""
+    want = {"attention_fwd": {"resident": fwd, "general": 0},
+            "attention_bwd": {"resident": bwd, "general": 0}}
+    if got != want:
+        raise AssertionError(f"{where}: attention launches {got}, expected "
+                             f"{want}")
+
+
+def run_clis(A, card):
+    """Phase 7: the port's CLIs, in process, DeiT-S at full width and depth:
+    search (SYNTHETIC 1024, staging 256 -> 224, batch 64, bf16, fused
+    RandAugment m9 + erasing 0.25, Mixup 0.8 / CutMix 1.0 after the finish,
+    compress threshold 1.0, 4 epochs), a resumed fifth epoch, export of the
+    best checkpoint, one finetune epoch of the subnet (EMA, device cache)
+    and the eval CLI on its best. Returns the launches of the five runs."""
+    import shutil
+    import tempfile
+    import torch
+    from ofb_tpu_torch.cli import eval as eval_cli
+    from ofb_tpu_torch.cli import export, finetune, search
+    from ofb_tpu_torch.ops import augment as AUG
+
+    root = tempfile.mkdtemp(prefix="ofb_cli_")
+    totals = {"attention_fwd": 0, "attention_bwd": 0,
+              "attention_fwd_general": 0, "attention_bwd_general": 0}
+
+    def add(counts):
+        for k, by in counts.items():
+            totals[k] += by["resident"]
+            totals[k + "_general"] += by["general"]
+
+    try:
+        sdir = os.path.join(root, "search")
+        common = ["--data-set", "SYNTHETIC", "--batch-size", "64",
+                  "--output_dir", sdir]
+        search_argv = common + [
+            "--model", "deit_small_patch16_224_mim", "--synthetic-size",
+            "1024", "--accum-iter", "1", "--mixup", "0.8", "--cutmix", "1.0",
+            "--compress-thresh", "1.0"]
+        steps, n_val = 1024 // 64, 1024 // 64
+
+        # 7.1 search: search epochs, the finish, postsearch epochs, fuse
+        _, text, counts, dt = run_cli(A, search,
+                                      search_argv + ["--epochs", "4"])
+        add(counts)
+        slog = _log(os.path.join(sdir, "log.txt"))
+        if "== finish_search" not in text or "saved model_fused" not in text:
+            raise AssertionError("the search did not finish and fuse")
+        for name in ("running_ckpt", "best", "model_fused", "log.txt",
+                     "alpha.txt"):
+            if not os.path.exists(os.path.join(sdir, name)):
+                raise AssertionError(f"the search wrote no {name}")
+        kinds = []
+        for row in slog:
+            keys = set(row)
+            kinds.append("search" if keys == LOG_KEYS_SEARCH else
+                         "postsearch" if keys == LOG_KEYS_POSTSEARCH else
+                         None)
+            if kinds[-1] is None:
+                raise AssertionError(f"log.txt keys {sorted(keys)} are not "
+                                     "the JAX CLI's")
+            if not all(math.isfinite(v) for k, v in row.items()
+                       if k.startswith("train_loss")):
+                raise AssertionError(f"a loss is not finite: {row}")
+        if "search" not in kinds or "postsearch" not in kinds:
+            raise AssertionError(f"epochs by phase {kinds}: wanted a search "
+                                 "and a postsearch epoch")
+        fused = json.load(open(os.path.join(sdir, "model_fused",
+                                            "meta.json")))
+        if not 0.0 <= fused["fused_acc1"] <= 100.0:
+            raise AssertionError(f"fused accuracy {fused['fused_acc1']}")
+        _expect_counts(counts, 12 * (4 * steps + 5 * n_val), 12 * 4 * steps,
+                       "search")
+        passes = [float(x) * 1e3 for x in re.findall(
+            r"compress pass ([\d.]+)s", text)]
+        ep = _epochs(text)
+        log(f"cli search: {len(ep)} epochs ({', '.join(kinds)}) in {dt:.1f} "
+            f"s; sustained img/s by epoch (log.txt train_img_s) "
+            f"{[round(r['train_img_s'], 2) for r in slog]}; split of each "
+            f"epoch, s (feed, dispatch, readback, compress): "
+            f"{[e[2:] for e in ep]}; {len(passes)} compress passes, host ms "
+            f"{[round(p, 2) for p in passes]}; fused acc1 "
+            f"{fused['fused_acc1']:.3f}; launches {counts}; on {card}")
+
+        # 7.2 resume at the next epoch
+        _, text, counts, dt = run_cli(A, search, search_argv + [
+            "--epochs", "5", "--resume", "--checkpoint",
+            os.path.join(sdir, "running_ckpt")])
+        add(counts)
+        ep = _epochs(text)
+        if "resumed from" not in text or [e[0] for e in ep] != [4]:
+            raise AssertionError(f"the resumed search ran epochs "
+                                 f"{[e[0] for e in ep]}, wanted [4]")
+        _expect_counts(counts, 12 * (steps + 2 * n_val), 12 * steps,
+                       "resumed search")
+        log(f"cli resume: epoch 4 at {ep[0][1]:.2f} img/s, split "
+            f"{ep[0][2:]}; launches {counts}")
+
+        # 7.3 export of the best checkpoint
+        xdir = os.path.join(root, "exported")
+        (dense, dcfg), text, counts, dt = run_cli(A, export, [
+            "--checkpoint", os.path.join(sdir, "best"), "--out", xdir])
+        add(counts)
+        N = dcfg.num_patches + dcfg.num_tokens
+        bodies = {A.attention_body(N, d, torch.bfloat16).name
+                  for _, d, _ in dcfg.block_overrides}
+        if bodies != {"resident"}:
+            raise AssertionError(f"subnet blocks take bodies {bodies}")
+        log(f"cli export: D {dcfg.embed_dim}, blocks (heads, head dim, mlp) "
+            f"{list(dcfg.block_overrides)} in {dt:.1f} s")
+
+        # 7.4 one finetune epoch, EMA, device cache
+        fdir = os.path.join(root, "finetune")
+        ft_steps, ft_val = 2048 // 64, 2048 // 64
+        fstate, text, counts, dt = run_cli(A, finetune, [
+            "--data-set", "SYNTHETIC", "--batch-size", "64", "--finetune",
+            xdir, "--epochs", "1", "--model-ema", "--cache-device",
+            "--output_dir", fdir])
+        add(counts)
+        flog = _log(os.path.join(fdir, "log.txt"))
+        if not (math.isfinite(flog[-1]["train_loss"])
+                and os.path.exists(os.path.join(fdir, "best", "meta.json"))):
+            raise AssertionError(f"finetune: {flog}")
+        _expect_counts(counts, 12 * (ft_steps + 2 * ft_val), 12 * ft_steps,
+                       "finetune")
+        ep = _epochs(text)
+        log(f"cli finetune: {ep[0][1]:.2f} img/s sustained (log.txt "
+            f"{flog[-1]['train_img_s']:.2f}), split {ep[0][2:]}, loss "
+            f"{flog[-1]['train_loss']:.4f}, acc1 raw "
+            f"{flog[-1]['soft_test_acc1']:.3f} ema "
+            f"{flog[-1]['soft_test_ema_acc1']:.3f}; launches {counts}")
+
+        # 7.5 eval of the finetune's best
+        stats, text, counts, dt = run_cli(A, eval_cli, [
+            "--checkpoint", os.path.join(fdir, "best"), "--data-set",
+            "SYNTHETIC", "--batch-size", "64"])
+        add(counts)
+        if not (0.0 <= stats["acc1"] <= 100.0
+                and math.isfinite(stats["loss"])):
+            raise AssertionError(f"eval: {stats}")
+        _expect_counts(counts, 12 * 2048 // 64, 0, "eval")
+        log(f"cli eval: {stats} in {dt:.1f} s; launches {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the train transform at batch 256 (staging 256 -> 224), device time,
+    # next to the search step at batch 256
+    from ofb_tpu_torch.bench import augment_call, build_step
+    aug_ms = device_time_ms(augment_call(256), iters=5)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    draw_ms = device_time_ms(lambda: AUG.draw_train_augment(
+        g, 256, 256, 224, device="cuda"), iters=5)
+    bundle, state, step, images, labels = build_step("deit_small", 256)
+    box = {"state": state}
+
+    def search_call():
+        box["state"], m = step(box["state"], images, labels, g, 0.75)
+        return m
+    step_ms = device_time_ms(search_call, iters=3, warmup=2)
+    log(f"augment on {card}: apply_train_augment at batch 256 (256 -> 224, "
+        f"RandAugment m9 2 layers, erasing) {aug_ms:.3f} ms device time, its "
+        f"draws {draw_ms:.3f} ms; the search step at batch 256 "
+        f"{step_ms:.3f} ms device time")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -661,6 +947,7 @@ def main():
     fp32 = check_against_cpu(A)
     launches = run_slice(A)
     lifecycle = run_lifecycle(A, smi)
+    cli = run_clis(A, smi)
 
     kernels = []
     for name, src, line in (
@@ -671,15 +958,20 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
             replaces=f"{ATTN_SRC}:{line}",
-            launches=fp32[name] + launches[name] + lifecycle[name],
+            launches=fp32[name] + launches[name] + lifecycle[name]
+            + cli[name],
             launches_fp32=fp32[name],
             launches_search=launches[name],
             launches_lifecycle=lifecycle[name],
+            launches_cli=cli[name],
             max_abs_err=errs[name], **times[name]))
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels no driven path launched: {idle}")
     log(json.dumps({"subnet_attention": subnet_times}))
+    log("device time: profiler sessions taken as whole {whole}, taken as "
+        "agreeing {agreed}, dropped {dropped}; times from queued_time_ms "
+        "{queued}".format(**SESSIONS))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,13 +14,26 @@ subnet of mixed head geometry) and then time
                AdamW, Mixup / CutMix, EMA);
   eval         the dense eval step on the exported subnet.
 
+With `--subnet DIR` the finetune and eval phases take the subnet of an
+exported checkpoint (`cli.export`'s) instead, and skip the search.
+
+`--phase augment` times `ops.augment.apply_train_augment` alone instead:
+the train transform of a batch of SYNTHETIC staging images (256 -> 224,
+RandAugment m9 two layers, erasing) with draws from a seed (no MFU).
+`--phase feed` times the host side of the CLIs' feed alone, on SYNTHETIC
+at staging 256 with the CLIs' default 4 DataLoader workers and no step: one image's
+decode on this thread, the loader's first batch and its steady ms a batch
+(unpinned, and pinned by the DataLoader's thread), and a batch's
+`pin_memory()` on this thread.
+
 MFU counts 6 x the model's forward MACs per image for a training step
 (backward ~ 2 x forward, 2 flops a MAC) and 2 x for eval, against the H100
 SXM dense bf16 peak of 989 TFLOP/s; for the supernet the MACs are the
 dense supernet's (the FLOPs model's total), for the subnet its own.
 
 Usage: python -m ofb_tpu_torch.bench [--model deit_small] [--batch 256]
-       [--steps 20] [--phase search|postsearch|finetune|eval] [--profile N]
+       [--steps 20] [--phase search|postsearch|finetune|eval|augment]
+       [--subnet DIR] [--profile N]
 Prints one JSON line; the phases that converge the search also report the
 host time of the converging `compress` pass and of a pass that finds
 nothing to prune. Needs a CUDA device. With --profile N it then traces N
@@ -81,13 +94,33 @@ def build_step(model: str, batch: int, *, device="cuda", seed: int = 0):
                        opt_state=tx.init(named_leaves(params, alphas)))
     step = make_search_step(bundle.space, bundle.cfg, scfg, tx,
                             compute_dtype=torch.bfloat16, device=device)
-    g = torch.Generator(device=bundle.device).manual_seed(seed + 1)
-    S = bundle.cfg.img_size
-    images = torch.rand((1, batch, S, S, 3), generator=g,
-                        device=bundle.device)
-    labels = torch.randint(0, bundle.cfg.num_classes, (1, batch),
-                           generator=g, device=bundle.device)
+    images, labels = random_batch(bundle.cfg, batch, bundle.device, seed)
     return bundle, state, step, images, labels
+
+
+def random_batch(cfg, batch: int, device, seed: int = 0):
+    """(images (1, batch, S, S, 3) in [0, 1), labels (1, batch)) of a model
+    config, from `seed`."""
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    S = cfg.img_size
+    images = torch.rand((1, batch, S, S, 3), generator=g, device=device)
+    labels = torch.randint(0, cfg.num_classes, (1, batch), generator=g,
+                           device=device)
+    return images, labels
+
+
+def load_exported(path: str, device="cuda"):
+    """(dense ViT, its ModelCfg) of a checkpoint that `cli.export` wrote."""
+    from .core import checkpoint as ckpt
+    from .models.vit import ModelCfg, ViT
+
+    meta = ckpt.latest_meta(path)
+    if meta is None or not meta.get("exported"):
+        raise ValueError(f"{path} holds no exported checkpoint")
+    cfg = ckpt.model_cfg_from_meta(meta["model_cfg"], ModelCfg)
+    dense = ViT(cfg).to(device)
+    ckpt.load_checkpoint(path, params=dense)
+    return dense, cfg
 
 
 # Cells the forced convergence picks, DeiT geometry (head grid 2 | 4 | 6,
@@ -150,11 +183,13 @@ def build_postsearch_step(bundle, batch: int, *, device="cuda"):
                             device=device)
 
 
-def build_subnet_steps(bundle, state, batch: int, *, device="cuda"):
-    """Export the converged supernet and build the finetune stage on the
-    subnet: (dense params, dense cfg, meta, train state, train step, eval
-    step), with `FinetuneConfig`'s defaults (layer decay 0.95, weight decay
-    0.05, Mixup 0.8 / CutMix 1.0, EMA) and a cosine schedule."""
+def build_subnet_steps(bundle, state, batch: int, *, device="cuda",
+                       subnet=None):
+    """Export the converged supernet (or take `subnet`, a (dense params,
+    dense cfg) pair) and build the finetune stage on the subnet: (dense
+    params, dense cfg, meta (None for `subnet`), train state, train step,
+    eval step), with `FinetuneConfig`'s defaults (layer decay 0.95, weight
+    decay 0.05, Mixup 0.8 / CutMix 1.0, EMA) and a cosine schedule."""
     from .config import FinetuneConfig
     from .core.export import export_subnet
     from .core.lr_decay import build_finetune_optimizer
@@ -162,8 +197,11 @@ def build_subnet_steps(bundle, state, batch: int, *, device="cuda"):
     from .core.steps import (TrainState, make_eval_step_dense,
                              make_train_step)
 
-    dense, dcfg, meta = export_subnet(state.params, state.arch, bundle.space,
-                                      bundle.cfg)
+    if subnet is None:
+        dense, dcfg, meta = export_subnet(state.params, state.arch,
+                                          bundle.space, bundle.cfg)
+    else:
+        (dense, dcfg), meta = subnet, None
     fcfg = FinetuneConfig()
     fcfg.data.batch_size = batch
     fcfg = fcfg.resolve(1)
@@ -234,6 +272,54 @@ def time_calls(call, steps: int, warmup: int = 3) -> float:
     return dt / steps
 
 
+def augment_call(batch: int, staging: int = 256, out_size: int = 224):
+    """A call of the train transform on `batch` SYNTHETIC staging images on
+    the card, with draws from a seed; returns one output value."""
+    from .data.datasets import SyntheticDataset
+    from .ops.augment import apply_train_augment, draw_train_augment
+
+    ds = SyntheticDataset(batch, 1000, staging)
+    x = torch.stack([torch.from_numpy(ds[i][0]) for i in range(batch)]) \
+        .cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    draws = draw_train_augment(g, batch, staging, out_size, device="cuda")
+    return lambda: apply_train_augment(x, draws, out_size=out_size)[
+        0, 0, 0, 0]
+
+
+def feed_times(batch: int, workers: int, steps: int):
+    """Host ms of the feed's parts at `batch` (see the module docstring)."""
+    import numpy as np
+    from .data.datasets import SyntheticDataset
+    from .data.pipeline import HostLoader
+
+    ds = SyntheticDataset(batch * (steps + 1), 1000, 256)
+    t0 = time.perf_counter()
+    for i in range(32):
+        ds[i]
+    out = {"decode_ms_per_image": (time.perf_counter() - t0) / 32 * 1e3}
+    plan = np.arange(batch * (steps + 1)).reshape(steps + 1, batch)
+    for pin in (False, True):
+        it = HostLoader(ds, plan, num_workers=workers).batches(pin)
+        t0 = time.perf_counter()
+        x, _ = next(it)
+        t1 = time.perf_counter()
+        for _ in it:
+            pass
+        tag = "pinned" if pin else "unpinned"
+        out[f"first_batch_ms_{tag}"] = (t1 - t0) * 1e3
+        out[f"loader_ms_per_batch_{tag}"] = \
+            (time.perf_counter() - t1) / steps * 1e3
+    x = x.clone()
+    for _ in range(2):                   # the host allocator's first blocks
+        x.pin_memory()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        x.pin_memory()
+    out["pin_ms_per_batch"] = (time.perf_counter() - t0) / 5 * 1e3
+    return {k: round(v, 3) for k, v in out.items()}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="deit_small",
@@ -241,29 +327,61 @@ def main():
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--phase", default="search",
-                    choices=["search", "postsearch", "finetune", "eval"])
+                    choices=["search", "postsearch", "finetune", "eval",
+                             "augment", "feed"])
+    ap.add_argument("--subnet", default="",
+                    help="finetune / eval: an exported checkpoint's subnet "
+                         "instead of the forced one")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps and print a breakdown")
     args = ap.parse_args()
 
+    if args.phase == "feed":
+        print(json.dumps({"metric": "host_feed_ms", "batch": args.batch,
+                          "workers": 4, **feed_times(args.batch, 4, args.steps),
+                          "device": card()}), flush=True)
+        return
+    if args.phase == "augment":
+        call = augment_call(args.batch)
+        dt = time_calls(call, args.steps)
+        print(json.dumps({
+            "metric": "train_augment_throughput",
+            "value": round(args.batch / dt, 2), "unit": "img/s",
+            "batch": args.batch, "ms_per_step": round(dt * 1e3, 3),
+            "device": card(), "count": torch.cuda.device_count()}),
+            flush=True)
+        if args.profile:
+            profile_steps(call, args.profile)
+        return
+
     from .models.vit import dense_flops
     from .ops.flops import model_flops
 
-    bundle, state, step, images, labels = build_step(args.model, args.batch)
-    gen = torch.Generator(device=bundle.device).manual_seed(2)
-    box = {"state": state}
+    if args.subnet and args.phase not in ("finetune", "eval"):
+        ap.error("--subnet is for the finetune and eval phases")
+    gen = torch.Generator(device="cuda").manual_seed(2)
     extra = {}
-    with torch.no_grad():
-        gmacs, _ = model_flops(state.alphas, state.arch, bundle.space,
-                               bundle.cfg)
     passes = 6.0
+    if args.subnet:
+        subnet = load_exported(args.subnet)
+        bundle = state = None
+        images, labels = random_batch(subnet[1], args.batch, "cuda")
+        extra["subnet"] = args.subnet
+    else:
+        subnet = None
+        bundle, state, step, images, labels = build_step(args.model,
+                                                         args.batch)
+        with torch.no_grad():
+            gmacs, _ = model_flops(state.alphas, state.arch, bundle.space,
+                                   bundle.cfg)
+    box = {"state": state}
 
     def search_call():
         box["state"], m = step(box["state"], images, labels, gen, 0.75)
         return m["loss_total"]
 
     call = search_call
-    if args.phase != "search":
+    if args.phase != "search" and not args.subnet:
         search_call()                    # moments to zero at the prune
         report, ms, idle_ms = force_convergence(state, bundle.space)
         if not report.finish_search:
@@ -279,7 +397,7 @@ def main():
             return m["loss_total"]
     elif args.phase in ("finetune", "eval"):
         dense, dcfg, meta, fstate, train, evaluate = build_subnet_steps(
-            bundle, state, args.batch)
+            bundle, state, args.batch, subnet=subnet)
         box["state"] = fstate
         gmacs = dense_flops(dcfg)
         extra.update(embed_dim=dcfg.embed_dim,

@@ -1,0 +1,101 @@
+"""Benchmark: sustained epoch throughput of the port's CLIs on one GPU,
+beside the step throughput of `ofb_tpu_torch.bench` at the same batch.
+
+Runs, in this process, on SYNTHETIC data (staging 256 -> 224, host decode
+by --workers DataLoader workers):
+
+  search     `cli.search` on DeiT-S, bf16, fused RandAugment m9 + erasing,
+             compress threshold 1.0 (so the search converges within the
+             run), --epochs epochs, on --images images;
+  export     `cli.export` of the search's best checkpoint;
+  finetune   3 `cli.finetune` epochs of that exported subnet (EMA,
+             Mixup / CutMix, the transform in the feed) from the host
+             loader, and as many with --cache-device; SYNTHETIC's default
+             2048 images an epoch, since the finetune CLI has no size flag;
+  step       `python -m ofb_tpu_torch.bench --phase search` (the supernet)
+             and `--phase finetune --subnet <export>` (the same subnet the
+             finetune ran) at the same batch, on random float images.
+
+Prints one JSON line: each CLI epoch's img/s (the engine's `img_s`: images
+over wall time, the feed, compress passes and readbacks included) and its
+split into feed / dispatch / readback / compress seconds, the compress
+passes' host ms, the step rates, and the card's name and power limit.
+
+Usage: python -m ofb_tpu_torch.bench_cli [--batch 64] [--epochs 2]
+       [--images 2048] [--workers 4] [--out DIR]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+
+def step_rate(phase, batch, *extra):
+    out = subprocess.run(
+        [sys.executable, "-m", "ofb_tpu_torch.bench", "--batch", str(batch),
+         "--phase", phase, "--steps", "10", *extra], capture_output=True,
+        text=True, check=True, timeout=900)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--epochs", type=int, default=2)
+    ap.add_argument("--images", type=int, default=2048)
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+
+    import torch
+    from .bench import card
+    from .cli import export, finetune, search
+    from .cli.common import run_main
+    from .core.engine import epoch_lines
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_cli needs a CUDA device")
+    root = args.out or tempfile.mkdtemp(prefix="ofb_bench_cli_")
+    sdir = os.path.join(root, "search")
+    xdir = os.path.join(root, "exported")
+    b = str(args.batch)
+    _, text = run_main(search, [
+        "--data-set", "SYNTHETIC", "--synthetic-size", str(args.images),
+        "--batch-size", b, "--accum-iter", "1", "--epochs",
+        str(args.epochs), "--compress-thresh", "1.0", "--mixup", "0.8",
+        "--cutmix", "1.0", "--num_workers", str(args.workers),
+        "--output_dir", sdir])
+    result = {"batch": args.batch, "images": args.images,
+              "workers": args.workers, "search_epochs": epoch_lines(text),
+              "compress_ms": [round(float(x) * 1e3, 3) for x in re.findall(
+                  r"compress pass ([\d.]+)s", text)]}
+    (_, dcfg), _ = run_main(export, ["--checkpoint",
+                                     os.path.join(sdir, "best"), "--out",
+                                     xdir])
+    result["subnet"] = {"embed_dim": dcfg.embed_dim,
+                        "blocks": [list(x) for x in dcfg.block_overrides]}
+    for name, extra in (("finetune_epochs", []),
+                        ("finetune_cached_epochs", ["--cache-device"])):
+        _, text = run_main(finetune, [
+            "--data-set", "SYNTHETIC", "--batch-size", b, "--finetune",
+            xdir, "--epochs", "3", "--model-ema",
+            "--num_workers", str(args.workers), "--output_dir",
+            os.path.join(root, name)] + extra)
+        result[name] = epoch_lines(text)
+    torch.cuda.empty_cache()
+    for phase, extra in (("search", ()), ("finetune", ("--subnet", xdir))):
+        r = step_rate(phase, args.batch, *extra)
+        result[f"{phase}_step_img_s"] = r["value"]
+        result[f"{phase}_step_ms"] = r["ms_per_step"]
+    result["device"] = card()
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

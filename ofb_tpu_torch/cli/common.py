@@ -1,0 +1,115 @@
+"""Pieces the port's CLIs share: the tiny test geometry, rebuilding a
+supernet from a search run's recorded args, the per-epoch random source,
+the refusal of flags whose piece is not ported yet, and a CLI run in this
+process with its printed text kept."""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import sys
+from typing import Any, Dict
+
+import torch
+
+from ..models.registry import ModelBundle, create_model
+from ..models.search_space import SearchSpace
+from ..models.vit import ModelCfg
+
+# class counts of the datasets whose size a checkpoint's args name
+DATASET_CLASSES = {"DIGITS": 10, "CIFAR10": 10, "CIFAR100": 100,
+                   "IMNET100": 100, "IMNET": 1000}
+
+
+def tiny_cfg(num_classes: int, dims=(32, 2, 2), drop_path: float = 0.0
+             ) -> ModelCfg:
+    """The --tiny-test geometry: 32x32 images, patch 8, MLP ratio 2."""
+    embed, depth, heads = dims
+    return ModelCfg(img_size=32, patch_size=8, num_classes=num_classes,
+                    embed_dim=embed, depth=depth, num_heads=heads,
+                    mlp_ratio=2.0, drop_path_rate=drop_path)
+
+
+def tiny_bundle(num_classes: int, device, dims=(32, 2, 2),
+                drop_path: float = 0.0, patch_search: bool = True
+                ) -> ModelBundle:
+    cfg = tiny_cfg(num_classes, dims, drop_path)
+    space = SearchSpace.build(cfg.embed_dim, cfg.depth, cfg.num_heads,
+                              cfg.hidden, cfg.num_patches,
+                              patch_search=patch_search)
+    return ModelBundle(name="tiny", cfg=cfg, space=space, device=device)
+
+
+def supernet_bundle(saved_args: Dict[str, Any], model: str, num_classes: int,
+                    device) -> ModelBundle:
+    """The supernet a search run trained, from the args its checkpoint
+    recorded (the tiny geometry or a registry name)."""
+    if saved_args.get("tiny_test"):
+        return tiny_bundle(num_classes, device,
+                           dims=tuple(saved_args.get("tiny_dims",
+                                                     (32, 2, 2))))
+    return create_model(saved_args.get("model", model), device=device,
+                        num_classes=num_classes)
+
+
+def classes_from_args(saved_args: Dict[str, Any]) -> int:
+    """The class count of the dataset a search run recorded (1000 if
+    unknown)."""
+    name = str(saved_args.get("data_set", "")).upper()
+    if name in DATASET_CLASSES:
+        return DATASET_CLASSES[name]
+    if name == "SYNTHETIC":
+        return saved_args.get("synthetic_num_classes", 1000)
+    return 1000
+
+
+def epoch_generator(device: torch.device, seed: int, epoch: int
+                    ) -> torch.Generator:
+    """The random source of one epoch's augmentation, Mixup and PMIM
+    draws, on `device`: a function of (seed, epoch) alone, so a resumed
+    run draws what the uninterrupted run would have drawn."""
+    return torch.Generator(device=device).manual_seed(
+        (seed + 1234) * 100003 + epoch)
+
+
+def refuse_unported(args) -> None:
+    """Raise NotImplementedError for a flag whose piece is not ported."""
+    if getattr(args, "distillation_type", "none") != "none":
+        raise NotImplementedError(
+            "--distillation-type soft|hard needs the teacher "
+            "(models/teacher.py), not ported yet: ROADMAP Queue 1 item 7")
+    if getattr(args, "planned_epoch", False):
+        raise NotImplementedError(
+            "--planned-epoch needs the planned-epoch steps and loops, not "
+            "ported yet: ROADMAP Queue 1 item 6")
+    if getattr(args, "pretrained_path", ""):
+        raise NotImplementedError(
+            "--pretrained_path needs models/torch_import.py, not ported "
+            "yet: ROADMAP Queue 1 item 18")
+    if getattr(args, "world_size", 1) > 1:
+        raise NotImplementedError(
+            "--world_size > 1 needs the multi-GPU slice, not ported yet: "
+            "ROADMAP Queue 1 slice 5 (item 15)")
+
+
+class _Tee:
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_main(module, argv):
+    """Run CLI `module`'s `main` on `argv` in this process, its output still
+    printed; returns (what main returned, the text it printed)."""
+    args = argparse.ArgumentParser(parents=[module.get_args_parser()]) \
+        .parse_args(argv)
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = module.main(args)
+    return out, "".join(tee.parts)

@@ -1,0 +1,101 @@
+"""Evaluation CLI of the port: top-1 / top-5 / loss of a checkpoint on a
+validation set (the flags of scripts/eval.py).
+
+An exported checkpoint (`exported: True`, its `model_cfg` in the meta)
+runs the dense eval step, its EMA weights with --use-ema; a searched
+supernet checkpoint runs the gated eval step (soft accuracy).
+
+  python -m ofb_tpu_torch.cli.eval --checkpoint runs/exp/best \\
+      --data-set IMNET --data-path /data/imagenet [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def get_args_parser():
+    ap = argparse.ArgumentParser("OFB eval (PyTorch port)", add_help=False)
+    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--model", default="deit_small_patch16_224_mim")
+    ap.add_argument("--data-path", default="")
+    ap.add_argument("--data-set", default="IMNET")
+    ap.add_argument("--batch-size", type=int, default=128)
+    ap.add_argument("--input-size", type=int, default=224)
+    ap.add_argument("--num-classes", type=int, default=1000)
+    ap.add_argument("--use-ema", action="store_true")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; cuda (the default) raises without a "
+                         "card")
+    return ap
+
+
+def main(args):
+    from ..config import DataConfig
+    from ..core import checkpoint as ckpt
+    from ..core.engine import evaluate
+    from ..core.steps import make_eval_step, make_eval_step_dense
+    from ..data.datasets import build_dataset
+    from ..data.pipeline import device_feed, make_epoch_loader
+    from ..device import resolve_device
+    from ..models.vit import ModelCfg, ViT
+    from .common import supernet_bundle
+
+    dev = resolve_device(args.device)
+    compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
+        else torch.float32
+    meta = ckpt.latest_meta(args.checkpoint)
+    if meta is None:
+        raise SystemExit(f"no checkpoint at {args.checkpoint}")
+    if meta.get("family") == "swin":
+        raise NotImplementedError("Swin checkpoints need the Swin family, "
+                                  "not ported yet: ROADMAP slice 6")
+
+    # the restored model's img_size sets the eval input size
+    input_size = args.input_size
+    if meta.get("exported"):
+        if "model_cfg" not in meta:
+            raise SystemExit(f"{args.checkpoint} has no model_cfg in its "
+                             "meta; export it again")
+        input_size = meta["model_cfg"].get("img_size", input_size)
+
+    dcfg = DataConfig(data_path=args.data_path, data_set=args.data_set,
+                      input_size=input_size, batch_size=args.batch_size)
+    ds_val, nb_classes = build_dataset(False, dcfg, staging=256)
+
+    if meta.get("exported"):
+        cfg = ckpt.model_cfg_from_meta(meta["model_cfg"], ModelCfg)
+        params = ViT(cfg).to(dev)
+        ema = ViT(cfg).to(dev)
+        restored = ckpt.load_checkpoint(args.checkpoint, params=params,
+                                        ema_params=ema)
+        use = "ema" if args.use_ema and "ema" in restored else "params"
+        step = make_eval_step_dense(cfg, compute_dtype=compute, device=dev)
+        state_args = (restored[use],)
+    else:
+        bundle = supernet_bundle(meta.get("args", {}), args.model,
+                                 nb_classes, dev)
+        input_size = bundle.cfg.img_size
+        params, alphas, arch = bundle.init(0)
+        ckpt.load_checkpoint(args.checkpoint, params=params, alphas=alphas,
+                             arch=arch)
+        step = make_eval_step(bundle.space, bundle.cfg,
+                              compute_dtype=compute, device=dev)
+        state_args = (params, alphas, arch)
+
+    loader = make_epoch_loader(ds_val, epoch=0, rank=0, world=1,
+                               batch_size=args.batch_size,
+                               repeated_aug=False, train=False)
+    feed = device_feed(loader, train=False, out_size=input_size, device=dev)
+    stats = evaluate(step, feed, *state_args)
+    print(stats)
+    return stats
+
+
+if __name__ == "__main__":
+    main(argparse.ArgumentParser("OFB eval (PyTorch port)",
+                                 parents=[get_args_parser()]).parse_args())

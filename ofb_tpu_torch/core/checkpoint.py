@@ -1,0 +1,230 @@
+"""Checkpoint and resume.
+
+Port of ofb_tpu/core/checkpoint.py. Same directory layout and artifact set
+(running_ckpt / best / model_pruned / model_fused, exported subnets), one
+file per part plus `meta.json`:
+
+    <part>.pt    torch.save of a flat {name: tensor} dict, for the parts
+                 params, alphas, arch, opt_state and ema
+    meta.json    {"format_version": 1, "parts": [...], **caller's meta},
+                 written last, so a readable meta implies readable parts
+
+Every file is written to a temporary name and moved into place with
+`os.replace`. The JAX package writes flax msgpack parts instead; the two
+formats do not cross, and `load_checkpoint` raises on a JAX directory.
+
+The steps update parameters, moments and EMA in place, so `save_checkpoint`
+takes its snapshot (a copy to the host) before it returns, even with
+async_write: only serialisation and file I/O run on the writer thread.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..models.search_space import ArchState
+from ..utils.logging import is_main_process
+from .optim import LrScaleState
+
+FORMAT_VERSION = 1
+PARTS = ("params", "alphas", "arch", "opt_state", "ema")
+
+_PENDING: Dict[str, threading.Thread] = {}
+_PENDING_LOCK = threading.Lock()
+
+
+# ---------------------------------------------------------------------------
+# Parts as flat {name: tensor} dicts, and back in place
+# ---------------------------------------------------------------------------
+
+def _arch_tensors(arch: ArchState, prefix: str = "") -> Dict[str, Any]:
+    """Every tensor of an ArchState by dotted field path (live tensors)."""
+    out = {}
+    for f in dataclasses.fields(arch):
+        v = getattr(arch, f.name)
+        name = f"{prefix}{f.name}"
+        if isinstance(v, torch.Tensor):
+            out[name] = v
+        elif isinstance(v, tuple):
+            for i, x in enumerate(v):
+                out.update(_arch_tensors(x, f"{name}.{i}."))
+        elif dataclasses.is_dataclass(v):
+            out.update(_arch_tensors(v, f"{name}."))
+    return out
+
+
+def _opt_tensors(opt_state) -> Dict[str, Any]:
+    """An AdamWState (or the LrScaleState around one) as tensors; the
+    update count as a 0-d int64 tensor."""
+    out = {}
+    adam = opt_state
+    if isinstance(opt_state, LrScaleState):
+        out["scale"] = opt_state.scale
+        adam = opt_state.inner
+    out["count"] = torch.tensor(int(adam.count), dtype=torch.int64)
+    out.update({f"mu.{n}": t for n, t in adam.mu.items()})
+    out.update({f"nu.{n}": t for n, t in adam.nu.items()})
+    return out
+
+
+def _live(name: str, obj) -> Dict[str, Any]:
+    """The live tensors of one part, by name: a module's state dict, an
+    {name: tensor} dict as it is (EMA weights), the arch state's or the
+    optimizer state's tensors."""
+    if isinstance(obj, torch.nn.Module):
+        return obj.state_dict()
+    if name == "arch":
+        return _arch_tensors(obj)
+    if name == "opt_state":
+        return _opt_tensors(obj)
+    return dict(obj)
+
+
+def _snapshot(tensors: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {n: t.detach().to("cpu", copy=True) for n, t in tensors.items()}
+
+
+def _restore(name: str, obj, saved: Dict[str, torch.Tensor], path: str):
+    """Copy a saved part into the live object, in place; raises when the
+    names or shapes differ."""
+    if isinstance(obj, torch.nn.Module):
+        obj.load_state_dict(saved, strict=True)
+        return
+    live = _live(name, obj)
+    if set(live) != set(saved):
+        raise KeyError(f"{path}: part {name!r} differs from the model: only "
+                       f"saved {sorted(set(saved) - set(live))[:6]}, only "
+                       f"live {sorted(set(live) - set(saved))[:6]}")
+    with torch.no_grad():
+        for n, t in live.items():
+            if n == "count":
+                continue
+            if t.shape != saved[n].shape:
+                raise ValueError(f"{path}: {name}.{n} saved "
+                                 f"{tuple(saved[n].shape)}, live "
+                                 f"{tuple(t.shape)}")
+            t.copy_(saved[n])
+    if name == "opt_state":
+        adam = obj.inner if isinstance(obj, LrScaleState) else obj
+        adam.count = int(saved["count"])
+
+
+# ---------------------------------------------------------------------------
+# Save / load
+# ---------------------------------------------------------------------------
+
+def _write(path: str, parts: Dict[str, Dict[str, torch.Tensor]],
+           meta: Optional[Dict[str, Any]]) -> None:
+    for name, flat in parts.items():
+        dst = os.path.join(path, name + ".pt")
+        torch.save(flat, dst + ".tmp")
+        os.replace(dst + ".tmp", dst)
+    mdst = os.path.join(path, "meta.json")
+    with open(mdst + ".tmp", "w") as f:
+        json.dump({"format_version": FORMAT_VERSION, "parts": list(parts),
+                   **(meta or {})}, f, indent=2)
+    os.replace(mdst + ".tmp", mdst)
+
+
+def save_checkpoint(path: str, *, params, alphas=None, arch=None,
+                    opt_state=None, ema_params=None,
+                    meta: Optional[Dict[str, Any]] = None,
+                    async_write: bool = False) -> None:
+    """Write a checkpoint directory (rank 0 only). The parts are copied to
+    the host before this returns; with async_write, serialisation and file
+    I/O then run on a background thread (writes to one directory run one
+    after the other)."""
+    if not is_main_process():
+        return
+    os.makedirs(path, exist_ok=True)
+    objs = dict(zip(PARTS, (params, alphas, arch, opt_state, ema_params)))
+    parts = {name: _snapshot(_live(name, obj))
+             for name, obj in objs.items() if obj is not None}
+    if not async_write:
+        _write(path, parts, meta)
+        return
+    norm = os.path.abspath(path)
+    with _PENDING_LOCK:
+        prev = _PENDING.get(norm)
+    if prev is not None:
+        prev.join()
+    t = threading.Thread(target=_write, args=(path, parts, meta),
+                         daemon=True)
+    with _PENDING_LOCK:
+        _PENDING[norm] = t
+    t.start()
+
+
+def wait_for_pending_saves():
+    """Join outstanding async checkpoint writes (call before exit)."""
+    with _PENDING_LOCK:
+        pending = list(_PENDING.values())
+        _PENDING.clear()
+    for t in pending:
+        t.join()
+
+
+def latest_meta(path: str) -> Optional[Dict[str, Any]]:
+    p = os.path.join(path, "meta.json")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return json.load(f)
+
+
+def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
+                    opt_state=None, ema_params=None) -> Dict[str, Any]:
+    """Restore the parts of the checkpoint at `path` into the live objects
+    handed in (modules, ArchState, optimizer state, EMA dict), in place.
+    Returns {"meta": meta, <part>: the object restored into, ...}; a part
+    the checkpoint lacks, or no object was handed for, is left out.
+
+    Raises FileNotFoundError without a meta.json (a directory whose writer
+    never finished) or with a listed part missing, and ValueError on a
+    checkpoint in the JAX package's format."""
+    meta = latest_meta(path)
+    if meta is None:
+        raise FileNotFoundError(f"no checkpoint at {path} (no meta.json)")
+    ver = meta.get("format_version", 1)
+    if ver > FORMAT_VERSION:
+        raise ValueError(f"checkpoint format {ver} is newer than this build "
+                         f"understands ({FORMAT_VERSION}): {path}")
+    listed = meta.get("parts", [])
+    if meta.get("backend") == "orbax" or any(
+            os.path.exists(os.path.join(path, n + ".msgpack"))
+            and not os.path.exists(os.path.join(path, n + ".pt"))
+            for n in listed):
+        raise ValueError(f"{path} was written by the JAX package (flax "
+                         "msgpack / orbax parts); the port reads only its "
+                         "own <part>.pt checkpoints")
+    objs = dict(zip(PARTS, (params, alphas, arch, opt_state, ema_params)))
+    out: Dict[str, Any] = {"meta": meta}
+    for name in listed:
+        obj = objs.get(name)
+        if obj is None:
+            continue
+        fpath = os.path.join(path, name + ".pt")
+        if not os.path.exists(fpath):
+            raise FileNotFoundError(f"part {name!r} listed in "
+                                    f"{path}/meta.json but {fpath} is "
+                                    "missing")
+        saved = torch.load(fpath, map_location="cpu", weights_only=True)
+        _restore(name, obj, saved, path)
+        out[name] = obj
+    return out
+
+
+def model_cfg_from_meta(cfg_dict: Dict[str, Any], cfg_cls):
+    """Rebuild a frozen, tuple-field config dataclass from the JSON round
+    trip of dataclasses.asdict: lists become tuples, nested ones too."""
+    def conv(v):
+        if isinstance(v, list):
+            return tuple(conv(x) for x in v)
+        return v
+    return cfg_cls(**{k: conv(v) for k, v in cfg_dict.items()})

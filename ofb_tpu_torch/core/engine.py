@@ -1,0 +1,230 @@
+"""Per-epoch loops: search, train, evaluate.
+
+Port of ofb_tpu/core/engine.py (the classic loops; the planned-epoch ones
+wait for the planned steps). The inner loop enqueues steps and, at the
+compress cadence, runs the host-side compress pass. Metrics stay on the
+device until the log window ends and come back in one transfer per window,
+so the host runs ahead of the device between windows.
+
+Each epoch prints its wall time and sustained img/s and splits the time
+into feed (waiting for the next batch: for the decode workers and the
+loader's pin thread, or for the decode itself without workers, then the
+copy's enqueue and, for an unfused step, the augment's dispatch), dispatch
+(enqueueing the steps), readback (the window transfers, which wait for the
+device) and compress (the host passes). `epoch_lines` reads that line back.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+import sys
+import time
+from typing import Callable, Dict, Iterable, List, Tuple
+
+import torch
+
+from ..config import SearchConfig
+from ..models.search_space import SearchSpace
+from ..utils.logging import master_print
+from ..utils.metrics import MetricLogger
+from .compress import compress, update_w_p
+from .steps import TrainState, keep_ratio_schedule
+
+
+class _Window:
+    """Metrics of the steps since the last readback, read back in one
+    transfer: the values of every step stacked on the device, then one copy
+    to the host."""
+
+    def __init__(self, logger: MetricLogger, timing: Dict[str, float]):
+        self.logger = logger
+        self.timing = timing
+        self.pending: List[Dict[str, torch.Tensor]] = []
+
+    def add(self, metrics: Dict[str, torch.Tensor]):
+        self.pending.append(metrics)
+
+    def flush(self):
+        if not self.pending:
+            return
+        t0 = time.perf_counter()
+        keys = list(self.pending[0])
+        host = torch.stack([torch.stack([m[k].detach().float() for k in keys])
+                            for m in self.pending]).cpu().tolist()
+        self.timing["readback_s"] += time.perf_counter() - t0
+        for row in host:
+            self.logger.update(**dict(zip(keys, row)))
+        self.pending.clear()
+
+
+def _batch_images(imgs) -> int:
+    return int(imgs.shape[0] * imgs.shape[1]) if imgs.dim() == 5 \
+        else int(imgs.shape[0])
+
+
+def _timed(feed, timing):
+    """Iterate `feed`, adding the time spent waiting for it to feed_s."""
+    it = iter(feed)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        timing["feed_s"] += time.perf_counter() - t0
+        yield item
+
+
+def _close(stats, timing, t_epoch, n_images, epoch, print_fn):
+    dt = time.perf_counter() - t_epoch
+    stats["epoch_time_s"] = dt
+    stats["img_s"] = n_images / max(dt, 1e-9)
+    print_fn(f"Epoch [{epoch}] total {dt:.1f}s "
+             f"({stats['img_s']:.1f} img/s sustained) "
+             f"[feed {timing['feed_s']:.3f}s "
+             f"dispatch {timing['dispatch_s']:.3f}s "
+             f"readback {timing['readback_s']:.3f}s "
+             f"compress {timing['compress_s']:.3f}s]")
+    return stats
+
+
+_EPOCH_LINE = re.compile(
+    r"Epoch \[(\d+)\] total [\d.]+s \(([\d.]+) img/s sustained\) "
+    r"\[feed ([\d.]+)s dispatch ([\d.]+)s readback ([\d.]+)s "
+    r"compress ([\d.]+)s\]")
+
+
+def epoch_lines(text: str) -> List[Dict[str, float]]:
+    """The epoch lines `_close` printed in `text`: epoch, img_s and the
+    split's feed_s, dispatch_s, readback_s and compress_s, in order."""
+    keys = ("epoch", "img_s", "feed_s", "dispatch_s", "readback_s",
+            "compress_s")
+    return [dict(zip(keys, (int(m[0]),) + tuple(float(x) for x in m[1:])))
+            for m in _EPOCH_LINE.findall(text)]
+
+
+def _halt_if_not_finite(logger, key, print_fn):
+    val = logger.meters[key].value
+    if not math.isfinite(val):
+        print_fn(f"Loss is {val}, stopping training")
+        sys.exit(1)
+
+
+def _new_timing() -> Dict[str, float]:
+    return {"feed_s": 0.0, "dispatch_s": 0.0, "readback_s": 0.0,
+            "compress_s": 0.0}
+
+
+def search_one_epoch(state: TrainState, step_fn: Callable, feed: Iterable,
+                     *, epoch: int, steps_per_epoch: int, scfg: SearchConfig,
+                     space: SearchSpace, generator, finish_search: bool,
+                     log_every: int = 10, print_fn=master_print
+                     ) -> Tuple[TrainState, Dict[str, float], bool, bool]:
+    """One search epoch. Returns (state, stats, finish_search,
+    execute_pruned).
+
+    Per iteration: the PMIM keep ratio and the w_p anneal at the fraction of
+    the epoch done, then `step_fn(state, images, labels, generator, keep)`.
+    Unless the search has finished, compress runs every steps_per_epoch //
+    compress_per_epoch iterations. A loss that is not finite at a log
+    window's readback ends the run (exit code 1)."""
+    timing = _new_timing()
+    logger = MetricLogger(print_fn=print_fn)
+    window = _Window(logger, timing)
+    execute_pruned = False
+    A = scfg.accum_iter
+    micro_per_epoch = steps_per_epoch * A
+    compress_every = max(steps_per_epoch // scfg.compress_per_epoch, 1)
+    t_epoch = time.perf_counter()
+    n_images = 0
+
+    for it, (imgs, lbls) in enumerate(_timed(feed, timing)):
+        frac_epoch = (it * A) / max(micro_per_epoch, 1) + epoch
+        keep = keep_ratio_schedule(frac_epoch, scfg, state.arch, space)
+        update_w_p(state.arch, frac_epoch, scfg.schedule.warmup_epochs)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, imgs, lbls, generator, keep)
+        timing["dispatch_s"] += time.perf_counter() - t0
+        window.add(metrics)
+        n_images += _batch_images(imgs)
+
+        if it % log_every == 0 or it == steps_per_epoch - 1:
+            window.flush()
+            _halt_if_not_finite(logger, "loss_total", print_fn)
+            print_fn(f"Epoch [{epoch}] [{it}/{steps_per_epoch}] {logger}")
+
+        if not finish_search and (it + 1) % compress_every == 0:
+            window.flush()
+            print_fn("Start Compression")
+            t_c = time.perf_counter()
+            params, alphas, arch, opt_state, report = compress(
+                state.params, state.alphas, state.arch, state.opt_state,
+                space, scfg.compress_thresh)
+            state.params, state.alphas, state.arch, state.opt_state = \
+                params, alphas, arch, opt_state
+            dt_c = time.perf_counter() - t_c
+            timing["compress_s"] += dt_c
+            execute_pruned |= report.execute_prune
+            for e in report.events:
+                print_fn(f"  {e}")
+            print_fn(f"  compress pass {dt_c:.4f}s "
+                     f"({len(report.events)} events)")
+            finish_search = report.finish_search
+
+    window.flush()
+    stats = _close(logger.averages(), timing, t_epoch, n_images, epoch,
+                   print_fn)
+    return state, stats, finish_search, execute_pruned
+
+
+def train_one_epoch(state: TrainState, step_fn: Callable, feed: Iterable, *,
+                    epoch: int, steps_per_epoch: int, generator,
+                    log_every: int = 10, print_fn=master_print
+                    ) -> Tuple[TrainState, Dict[str, float]]:
+    """One finetune epoch of `step_fn(state, images, labels, generator)`,
+    with the search epoch's readback windows and NaN halt."""
+    timing = _new_timing()
+    logger = MetricLogger(print_fn=print_fn)
+    window = _Window(logger, timing)
+    t_epoch = time.perf_counter()
+    n_images = 0
+    for it, (imgs, lbls) in enumerate(_timed(feed, timing)):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, imgs, lbls, generator)
+        timing["dispatch_s"] += time.perf_counter() - t0
+        window.add(metrics)
+        n_images += _batch_images(imgs)
+        if it % log_every == 0 or it == steps_per_epoch - 1:
+            window.flush()
+            _halt_if_not_finite(logger, "loss", print_fn)
+            print_fn(f"Epoch [{epoch}] [{it}/{steps_per_epoch}] {logger}")
+    window.flush()
+    stats = _close(logger.averages(), timing, t_epoch, n_images, epoch,
+                   print_fn)
+    return state, stats
+
+
+def evaluate(eval_step: Callable, feed: Iterable, *args,
+             print_fn=master_print, header: str = "Test:"
+             ) -> Dict[str, float]:
+    """Top-1 / top-5 / loss over a feed. `args` are the model state pieces
+    the eval step takes before (images, labels). The sums stay on the
+    device (float64) and come back once at the end."""
+    keys = ("loss_sum", "top1", "top5", "count")
+    tot = None
+    for imgs, lbls in feed:
+        if imgs.dim() == 5:                     # (A, mb, ...) -> one batch
+            imgs = imgs.reshape(-1, *imgs.shape[2:])
+            lbls = lbls.reshape(-1)
+        m = eval_step(*args, imgs, lbls)
+        row = torch.stack([m[k].detach().double() for k in keys])
+        tot = row if tot is None else tot + row
+    vals = dict(zip(keys, tot.cpu().tolist() if tot is not None
+                    else [0.0] * 4))
+    n = max(vals["count"], 1.0)
+    stats = {"loss": vals["loss_sum"] / n, "acc1": 100.0 * vals["top1"] / n,
+             "acc5": 100.0 * vals["top5"] / n}
+    print_fn(f"{header} Acc@1 {stats['acc1']:.3f} Acc@5 {stats['acc5']:.3f} "
+             f"loss {stats['loss']:.3f}")
+    return stats

@@ -23,9 +23,11 @@ return the sums a caller averages over an epoch.
 PyTorch runs eagerly, so the steps update the state's parameters, moments
 and EMA in place (no copy of the model per step) and return the same
 state. Randomness never has to come from the step: `token_masks=` replaces
-the PMIM masks and `mixup_draws=` the Mixup parameters drawn from
-`generator`. Fused augmentation, the teacher and the planned-epoch steps
-are not ported yet.
+the PMIM masks, `mixup_draws=` the Mixup parameters and `augment_draws=`
+the train transform's parameters drawn from `generator`. With
+fused_augment=True a step takes uint8 staging batches and runs the train
+transform (`ops/augment.py`) on the device before the forward. The teacher
+and the planned-epoch steps are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..device import resolve_device
 from ..models.mim_vit import Alphas, mim_forward
 from ..models.search_space import ArchState, SearchSpace
 from ..models.vit import ModelCfg, ViT, vit_forward
+from ..ops.augment import apply_train_augment, draw_train_augment
 from ..ops.mixup import apply_mixup, mixup_draws as draw_mixup
 from . import losses as L
 from .optim import named_leaves
@@ -75,11 +78,35 @@ def _is_decoder(name: str) -> bool:
     return name.startswith("decoder.") or name == "mask_token"
 
 
-def _not_ported(teacher_apply, fused_augment):
+def _not_ported(teacher_apply):
     if teacher_apply is not None:
         raise NotImplementedError("the teacher is not ported yet")
-    if fused_augment:
-        raise NotImplementedError("fused augmentation is not ported yet")
+
+
+def _augmenter(fused_augment, out_size, use_randaug, re_prob, crop_scale,
+               hflip):
+    """augment(images_u8 (A, mb, S, S, 3), generator, draws, dev) -> float
+    (A, mb, out, out, 3) on dev, the train transform of each microbatch
+    with its draws (one `AugmentDraws` per microbatch) or with draws from
+    `generator`; None when the step takes ready images."""
+    if not fused_augment:
+        return None
+
+    def augment(images, generator, draws, dev):
+        if draws is None and generator is None:
+            raise ValueError("fused augmentation needs a `generator` to draw "
+                             "from, or `augment_draws`")
+        out = []
+        for a in range(images.shape[0]):
+            x = images[a].to(dev)
+            d = draws[a] if draws is not None else draw_train_augment(
+                generator, x.shape[0], x.shape[1], out_size,
+                use_randaug=use_randaug, re_prob=re_prob,
+                crop_scale=crop_scale, hflip=hflip, device=dev)
+            out.append(apply_train_augment(x, d, out_size=out_size))
+        return torch.stack(out)
+
+    return augment
 
 
 def _mixed(images, labels, generator, draws, mix, *, num_classes,
@@ -136,22 +163,31 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
                      param_mask: Optional[Dict[str, float]] = None,
                      alpha_mask: Optional[Dict[str, float]] = None,
                      teacher_apply=None, compute_dtype=torch.bfloat16,
-                     fused_augment: bool = False, fused_model: bool = False,
+                     fused_augment: bool = False, use_randaug: bool = True,
+                     re_prob: float = 0.25, crop_scale=(0.08, 1.0),
+                     hflip: bool = True, fused_model: bool = False,
                      gate_fold: bool = True, device="cuda"):
     """Build the supernet's step on `device` (default "cuda"; raises
     without a card unless device="cpu" is asked for).
 
     Returns step(state, images (A, mb, H, W, C), labels (A, mb), generator,
-    keep_ratio, token_masks=None, mixup_draws=None) -> (state, metrics).
-    `token_masks` (A, mb, L), 1 = removed, replaces the PMIM masks drawn
-    from `generator`; `mixup_draws`, one `ops.mixup.mixup_draws` result per
-    microbatch, replaces the postsearch phase's Mixup draws. `param_mask` /
+    keep_ratio, token_masks=None, mixup_draws=None, augment_draws=None) ->
+    (state, metrics). `token_masks` (A, mb, L), 1 = removed, replaces the
+    PMIM masks drawn from `generator`; `mixup_draws`, one
+    `ops.mixup.mixup_draws` result per microbatch, replaces the postsearch
+    phase's Mixup draws. With `fused_augment` the images are uint8 staging
+    batches (A, mb, S, S, 3), transformed to the model's input size on the
+    device (`use_randaug`, `re_prob`, `crop_scale`, `hflip` as in
+    `ops.augment.draw_train_augment`); `augment_draws`, one `AugmentDraws`
+    per microbatch, replaces the draws from `generator`. `param_mask` /
     `alpha_mask` are `make_trainable_mask`'s static 0/1 update masks;
     `fused_model` runs a post-fuse supernet (gates off)."""
     if phase not in ("search", "postsearch"):
         raise ValueError(f"phase {phase!r} (search | postsearch)")
-    _not_ported(teacher_apply, fused_augment)
+    _not_ported(teacher_apply)
     dev = resolve_device(device)
+    augment = _augmenter(fused_augment, mcfg.img_size, use_randaug, re_prob,
+                         crop_scale, hflip)
     use_mim = phase == "search"
     smoothing = scfg.mixup.label_smoothing
     static_mask = {**(param_mask or {}), **(alpha_mask or {})}
@@ -200,9 +236,11 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
         return total, metrics
 
     def step(state: TrainState, images, labels, generator=None,
-             keep_ratio=None, token_masks=None, mixup_draws=None):
+             keep_ratio=None, token_masks=None, mixup_draws=None,
+             augment_draws=None):
         A = images.shape[0]
-        images = images.to(dev)
+        images = augment(images, generator, augment_draws, dev) \
+            if augment is not None else images.to(dev)
         labels = labels.to(dev)
         leaves = named_leaves(state.params, state.alphas)
 
@@ -271,18 +309,23 @@ def make_train_step(mcfg: ModelCfg, tx, *, num_classes: int, mixup_cfg=None,
                     smoothing: float = 0.1,
                     ema_decay: Optional[float] = None, teacher_apply=None,
                     distill=None, compute_dtype=torch.bfloat16,
-                    fused_augment: bool = False, device="cuda"):
+                    fused_augment: bool = False, use_randaug: bool = True,
+                    re_prob: float = 0.25, crop_scale=(0.08, 1.0),
+                    hflip: bool = True, device="cuda"):
     """Plain supervised train step of the finetune stage, on `device`
     (default "cuda"; raises without a card unless device="cpu" is asked
     for).
 
     Returns step(state, images (A, mb, H, W, C), labels (A, mb),
-    generator=None, mixup_draws=None) -> (state, {"loss": ...}); the state
-    holds a dense `ViT` and no alphas. With `mixup_cfg` (mixup or cutmix
-    above 0) the labels are soft; `mixup_draws` replaces the draws from
-    `generator`."""
-    _not_ported(teacher_apply, fused_augment)
+    generator=None, mixup_draws=None, augment_draws=None) -> (state,
+    {"loss": ...}); the state holds a dense `ViT` and no alphas. With
+    `mixup_cfg` (mixup or cutmix above 0) the labels are soft;
+    `mixup_draws` replaces the draws from `generator`. `fused_augment` and
+    `augment_draws` as in `make_search_step`."""
+    _not_ported(teacher_apply)
     dev = resolve_device(device)
+    augment = _augmenter(fused_augment, mcfg.img_size, use_randaug, re_prob,
+                         crop_scale, hflip)
     mix_on = mixup_cfg is not None and (mixup_cfg.mixup > 0
                                         or mixup_cfg.cutmix > 0)
 
@@ -304,9 +347,10 @@ def make_train_step(mcfg: ModelCfg, tx, *, num_classes: int, mixup_cfg=None,
         return base, {"loss": base}
 
     def step(state: TrainState, images, labels, generator=None,
-             mixup_draws=None):
+             mixup_draws=None, augment_draws=None):
         A = images.shape[0]
-        images = images.to(dev)
+        images = augment(images, generator, augment_draws, dev) \
+            if augment is not None else images.to(dev)
         labels = labels.to(dev)
         leaves = dict(state.params.named_parameters())
 

@@ -362,9 +362,17 @@ def test_finetune_config_matches():
 def test_not_ported_options_raise():
     _, jdcfg, dense, dcfg = subnets("tiny4")
     tx = LD.build_finetune_optimizer(dense, lr_schedule=schedule)
-    for kw in (dict(fused_augment=True), dict(teacher_apply=lambda x: x)):
-        with pytest.raises(NotImplementedError):
-            S.make_train_step(dcfg, tx, num_classes=16, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        S.make_train_step(dcfg, tx, num_classes=16, device="cpu",
+                          teacher_apply=lambda x: x)
+    # fused augmentation is ported: without a generator or draws it raises
+    fused = S.make_train_step(dcfg, tx, num_classes=16, device="cpu",
+                              fused_augment=True)
+    with pytest.raises(ValueError, match="generator"):
+        fused(S.TrainState(0, dense, None, None,
+                           tx.init(dict(dense.named_parameters()))),
+              torch.zeros(1, 2, 40, 40, 3, dtype=torch.uint8),
+              torch.zeros(1, 2, dtype=torch.long))
     step = S.make_train_step(dcfg, tx, num_classes=16, device="cpu",
                              mixup_cfg=Cfg.MixupConfig(mixup=0.8),
                              compute_dtype=torch.float32)

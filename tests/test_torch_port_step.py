@@ -247,9 +247,15 @@ def test_options_that_are_not_ported_raise():
     _, pscfg = search_cfgs()
     cfg, space, _, _, _ = port_supernet(TINY, *jax_supernet(TINY)[2:])
     tx, _ = build_tx(O, pscfg)
-    for kw in (dict(fused_augment=True), dict(teacher_apply=lambda x: x)):
-        with pytest.raises(NotImplementedError):
-            make_search_step(space, cfg, pscfg, tx, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        make_search_step(space, cfg, pscfg, tx, device="cpu",
+                         teacher_apply=lambda x: x)
+    # fused augmentation is ported: without a generator or draws it raises
+    fused = make_search_step(space, cfg, pscfg, tx, device="cpu",
+                             fused_augment=True)
+    with pytest.raises(ValueError, match="generator"):
+        fused(None, torch.zeros(1, 2, 40, 40, 3, dtype=torch.uint8),
+              torch.zeros(1, 2, dtype=torch.long))
     with pytest.raises(ValueError, match="phase"):
         make_search_step(space, cfg, pscfg, tx, phase="finetune",
                          device="cpu")
