@@ -7,11 +7,14 @@ which raises (and so exits non-zero) on failure:
   1. card: name and power limit, CUDA version, and the build of every
      kernel from ofb_tpu_torch/csrc (one nvcc per source, in parallel);
   2. kernels: each kernel's wrapper against its plain PyTorch twin on the
-     same inputs, both bodies (the resident `wgmma` one and the general
-     one, each asked for by name), at the DeiT-S shapes of the search step,
-     the exported subnet's shapes (head dims 8 * odd among them, which the
-     resident body runs zero-padded to the next multiple of 16) and ragged
-     shapes, in bf16 and fp32 (TF32 off), every output finite;
+     same inputs, all three bodies (the resident and the streaming `wgmma`
+     ones and the general one, each asked for by name), at the DeiT-S
+     shapes of the search step, the exported subnet's shapes (head dims
+     8 * odd among them, which the `wgmma` bodies run zero-padded to the
+     next multiple of 16) and ragged shapes, in bf16 and fp32 (TF32 off);
+     the streaming body at DeiT-S and DeiT-B at 384 pixels (577 tokens),
+     ragged token counts up to 1025, 8 * odd head dims at 577 and, named,
+     at 1, 17 and 197 tokens; every output finite;
   3. timing: both bodies of each kernel with CUDA events at batch 256, in
      turns (general, resident, resident, general), beside the bound, the
      plain twin and torch's scaled_dot_product_attention (timed here as a
@@ -20,7 +23,11 @@ which raises (and so exits non-zero) on failure:
      256: resident, general (asked for by name), twin and SDPA. Each of
      these also as device time (torch.profiler: the kernels' summed
      durations, the host's dispatch left out; a session that lost kernel
-     records is run again);
+     records is run again). At 577 tokens (DeiT-S and DeiT-B at 384
+     pixels, and an exported subnet's 2 x 24 head) the general and the
+     streaming bodies in turns the same way, beside the twin, SDPA, the
+     bytes and the operations bounds; the streaming body must be the
+     faster at DeiT-S;
   4. reference: the port's DeiT-S forward and backward on the card (fp32,
      kernels) against the same model on the CPU (fp32, plain twins); the
      card's pass is a driven path of its own, counted from 0: 12 + 12
@@ -52,11 +59,19 @@ which raises (and so exits non-zero) on failure:
      0 against what `attention_body` predicts (all resident, none general);
      prints each run's sustained epoch img/s and the split of its epochs,
      the compress passes' host ms, and the device time of
-     `apply_train_augment` at batch 256 next to the search step's.
+     `apply_train_augment` at batch 256 next to the search step's;
+  8. the 384-pixel path, in process through the CLIs, bf16, batch 64,
+     SYNTHETIC at staging 256: `cli.finetune --model deit_small_patch16_384
+     --input-size 384 --from-scratch` for one epoch (device cache) and
+     `cli.eval` of its best; then phase 7's exported subnet finetuned for
+     one epoch at `--input-size 384` (its pos-embed resized 197 -> 577)
+     and evaluated. Every attention launch of the four runs, counted from
+     0, must take the streaming body (577 tokens), none the resident or
+     the general.
 
-The line before the last is the kernels' JSON (`launches` sums the four
-driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle` and
-`launches_cli` give each); the last line is
+The line before the last is the kernels' JSON (`launches` sums the five
+driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
+`launches_cli` and `launches_384` give each); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -64,8 +79,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
@@ -88,10 +105,25 @@ RAGGED = [(3, 17, 2, 16), (3, 17, 2, 8), (2, 33, 3, 24), (2, 70, 2, 40),
 # the resident body: bf16, N <= 256, d a multiple of 8, aligned rows
 RESIDENT = [DEIT_S, (2, 197, 6, 32), (2, 197, 3, 128), (2, 50, 4, 32),
             (2, 256, 2, 64)] + RAGGED + SUBNET
-# the general body: more than 256 tokens, unaligned views and fp32; asked
-# for by name at the resident body's shapes too
-GENERAL = [DEIT_S, (2, 257, 2, 64)] + RAGGED + SUBNET
+# the general body: unaligned views and fp32; asked for by name at the
+# resident and the streaming bodies' shapes too
+GENERAL = [DEIT_S, (2, 257, 2, 64), (2, 577, 2, 64)] + RAGGED + SUBNET
+# the streaming body: DeiT-S and DeiT-B at 384 pixels (577 = 9 x 64 + 1:
+# one valid key in the last tile), ragged token counts (1025 walks 17 key
+# tiles through a ring of 3 or 4), an exported subnet's head dims at 577 (24,
+# 40, 56 pad to 32, 48, 64; 72 and 120 to 80 and 128, the 128-column
+# kernels) and, asked for by name, counts the resident body serves
+STREAMING = [(64, 577, 6, 64), (16, 577, 12, 64), (2, 257, 2, 64),
+             (2, 300, 2, 64), (2, 385, 3, 32), (2, 1025, 2, 64),
+             (2, 577, 2, 24), (2, 577, 2, 40), (2, 577, 2, 56),
+             (2, 577, 2, 72), (2, 577, 2, 120), (3, 1, 2, 64),
+             (3, 17, 2, 40), (2, 197, 6, 64)]
 TIMING = (256, 197, 6, 64)
+# the streaming body against the general one: DeiT-S and DeiT-B at 384
+# pixels (the batches of the search step at 224), an exported subnet's
+# narrowest head
+STREAM_TIMING = [(256, 577, 6, 64), (64, 577, 12, 64), (256, 577, 2, 24)]
+BODIES = ("resident", "streaming", "general")
 # fp32 logits of two forms of one model on the card, as max |a - b| over
 # max |b|: 12 blocks of fp32 sums in other orders (TF32 off)
 TOL_LOGITS = 1e-4
@@ -100,6 +132,25 @@ ATTN_SRC = "ofb_tpu/ops/pallas_attention.py"
 
 def log(*a):
     print(*a, flush=True)
+
+
+def by_body(A):
+    """The attention launches since the last reset, by wrapper and body."""
+    return {"attention_fwd": dict(A.attention_fwd.by_body),
+            "attention_bwd": dict(A.attention_bwd.by_body)}
+
+
+def kernel_counts(counts):
+    """{kernel name of the JSON line: launches} from launches by wrapper
+    and body (the resident body's kernels carry the wrapper's name)."""
+    return {w + ("" if body == "resident" else "_" + body): n
+            for w, by in counts.items() for body, n in by.items()}
+
+
+def only(body, fwd, bwd):
+    """Launches by wrapper and body with every launch on `body`."""
+    return {"attention_fwd": {b: fwd if b == body else 0 for b in BODIES},
+            "attention_bwd": {b: bwd if b == body else 0 for b in BODIES}}
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -203,10 +254,13 @@ def queued_time_ms(fn, iters):
 
 def ptxas_report(log_text):
     """One line a kernel from nvcc's `-Xptxas -v` output: its name with its
-    template arguments, registers a thread and spilled bytes."""
+    template arguments, registers a thread and spilled bytes; and every
+    warning (ptxas says there when it serialises `wgmma`)."""
     name = None
     spills = ""
     for line in log_text.splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            yield line.strip()
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"\d+(attention_\w+?_kernel)(I(?:Li\d+E|[a-z0-9_]+)*E)?",
@@ -231,26 +285,47 @@ def make_qkv(B, N, H, d, dtype, gen):
     return q, buf[:, :, 1], buf[:, :, 2]
 
 
-def rel_err(got, ref):
+def rel_err(got, ref, scale=1e-30):
+    """max |got - ref| and it over max |ref| (over `scale` where ref is
+    all zeros)."""
     err = (got.float() - ref.float()).abs().max().item()
-    return err, err / max(ref.float().abs().max().item(), 1e-30)
+    return err, err / max(ref.float().abs().max().item(), scale)
+
+
+def uncancelled_scales(q, k, v, do):
+    """max |(p ⊙ dp) k| and max |(p ⊙ dp)ᵀ q|: dq and dk without the
+    delta that cancels them. With one token, softmax has no gradient (p =
+    1, ds = p ⊙ (dp - delta) = 0) and the twin's dq and dk are exactly 0;
+    the kernels take dp = do vᵀ and delta = rowsum(do ⊙ o) as two sums in
+    different orders, so they cancel to fp32 rounding, and their error is
+    measured against what it cancels."""
+    import torch
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", qf, kf), dim=-1)
+    pdp = p * torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    return (torch.einsum("bhnm,bmhd->bnhd", pdp, kf).abs().max().item(),
+            torch.einsum("bhnm,bnhd->bmhd", pdp, qf).abs().max().item(),
+            1e-30)
 
 
 def check_kernels(A):
-    """Phase 2. Returns the max abs errors of both bodies at the search
-    step's shape and type (DeiT-S, bf16)."""
+    """Phase 2. Returns the max abs errors of the resident and the general
+    bodies at the search step's shape and type (DeiT-S, bf16), and of the
+    streaming body at DeiT-S at 384 pixels, batch 64."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(shape, torch.bfloat16, "resident") for shape in RESIDENT]
+    cases += [(shape, torch.bfloat16, "streaming") for shape in STREAMING]
     cases += [(shape, dtype, "general") for shape in GENERAL
               for dtype in (torch.bfloat16, torch.float32)]
     main_err = {}
     for shape, dtype, body in cases:
         q, k, v = make_qkv(*shape, dtype, gen)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        if A.attention_body(shape[1], shape[3], dtype).name != body \
-                and body == "resident":
-            raise AssertionError(f"{shape} {dtype} is not the resident body's")
+        fit = A.attention_body(shape[1], shape[3], dtype).name
+        if body == "resident" and fit != body or \
+                body == "streaming" and shape[1] > 256 and fit != body:
+            raise AssertionError(f"{shape} {dtype} is not the {body} body's")
         o, lse = A.attention_fwd(q, k, v, body=body)
         torch.cuda.synchronize()
         ro, rl = A.attention_fwd_reference(q.float(), k.float(), v.float())
@@ -264,7 +339,9 @@ def check_kernels(A):
                                  f"finite at {shape} {dtype}")
         fwd = rel_err(o, ro)
         lse_err = (lse - rl).abs().max().item()
-        bwd = [rel_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+        scales = uncancelled_scales(q, k, v, do) if shape[1] == 1 \
+            else (1e-30,) * 3
+        bwd = [rel_err(g, r, c) for g, r, c in zip((dq, dk, dv), ref, scales)]
         log(f"kernels {body} {shape} {dtype}: fwd rel {fwd[1]:.3e}, lse "
             f"abs {lse_err:.3e}, bwd rel " +
             ", ".join(f"{e[1]:.3e}" for e in bwd) + f" (tol {tol:g})")
@@ -272,8 +349,10 @@ def check_kernels(A):
                 and max(e[1] for e in bwd) <= tol):
             raise AssertionError(f"the {body} body disagrees with its twin "
                                  f"at {shape} {dtype}")
-        if shape == DEIT_S and dtype == torch.bfloat16:
-            tag = "" if body == "resident" else "_general"
+        if (shape == DEIT_S and body != "streaming"
+                or shape == STREAMING[0] and body == "streaming") \
+                and dtype == torch.bfloat16:
+            tag = "" if body == "resident" else "_" + body
             main_err["attention_fwd" + tag] = fwd[0]
             main_err["attention_bwd" + tag] = max(e[0] for e in bwd)
     return main_err
@@ -431,6 +510,96 @@ def time_subnet_shapes(A):
     return rows
 
 
+def time_streaming(A):
+    """Phase 3, continued: at each shape of STREAM_TIMING, bf16, the
+    general and the streaming bodies of each kernel in turns (general,
+    streaming, streaming, general; each figure the mean of its two turns),
+    the plain twin and SDPA, each also as device time, beside the bytes
+    and the operations bounds; for the backward also the streaming design's
+    own floor (it computes 14 B H N² d flops for the math's 10). Returns
+    the rows and, at the first shape, the kernels' JSON fields of both
+    bodies."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, fields = [], {}
+    for B, N, H, d in STREAM_TIMING:
+        q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        o, lse = A.attention_fwd(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qg, kg, vg = (t.detach().clone().requires_grad_()
+                      for t in (qt, kt, vt))
+        so = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+        sdo = do.transpose(1, 2)
+        calls = {}
+        for b in ("streaming", "general"):
+            calls["fwd_" + b] = lambda b=b: A.attention_fwd(q, k, v, body=b)
+            calls["bwd_" + b] = lambda b=b: A.attention_bwd(
+                q, k, v, o, lse, do, body=b)
+        calls.update(
+            fwd_plain=lambda: A.attention_fwd_reference(q, k, v),
+            bwd_plain=lambda: A.attention_bwd_reference(q, k, v, do),
+            fwd_sdpa=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=1.0),
+            bwd_sdpa=lambda: torch.autograd.grad(
+                so, (qg, kg, vg), sdo, retain_graph=True))
+        elems, sq = B * N * H * d, B * H * N * N * d
+        row = dict(shape=[B, N, H, d])
+        for n, nbytes, flops in (("fwd", 8 * elems, 4 * sq),
+                                 ("bwd", 14 * elems, 10 * sq)):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS * 1e3
+            row.update({f"{n}_bytes_bound_ms": t_bytes,
+                        f"{n}_ops_bound_ms": t_ops,
+                        f"{n}_bound_ms": max(t_bytes, t_ops),
+                        f"{n}_bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations"})
+            turns = [(b, cuda_time_ms(calls[f"{n}_{b}"], iters=10))
+                     for b in ("general", "streaming", "streaming",
+                               "general")]
+            for b in ("streaming", "general"):
+                row[f"{n}_{b}_ms"] = sum(t for x, t in turns if x == b) / 2
+            for b in ("plain", "sdpa"):
+                row[f"{n}_{b}_ms"] = cuda_time_ms(calls[f"{n}_{b}"],
+                                                  iters=10)
+        row["bwd_design_floor_ms"] = 14 * sq / BF16_FLOPS * 1e3
+        for key, call in calls.items():
+            row[key + "_device_ms"] = device_time_ms(call, iters=10)
+        rows.append(row)
+        log(f"timing {(B, N, H, d)} bf16, ms (device ms): " + "; ".join(
+            f"{n} " + ", ".join(
+                f"{b} {row[f'{n}_{b}_ms']:.4f} "
+                f"({row[f'{n}_{b}_device_ms']:.4f})"
+                for b in ("streaming", "general", "plain", "sdpa"))
+            + f", bound {row[n + '_bound_ms']:.4f} ({row[n + '_bound_by']}; "
+            f"bytes {row[n + '_bytes_bound_ms']:.4f}, operations "
+            f"{row[n + '_ops_bound_ms']:.4f})" for n in ("fwd", "bwd"))
+            + f"; the streaming backward's own floor "
+            f"{row['bwd_design_floor_ms']:.4f} ms")
+        if (B, N, H, d) != STREAM_TIMING[0]:
+            continue
+        for n in ("fwd", "bwd"):
+            if row[f"{n}_streaming_ms"] >= row[f"{n}_general_ms"]:
+                raise AssertionError(f"attention_{n} at {(B, N, H, d)}: the "
+                                     f"streaming body is not faster than "
+                                     f"the general one")
+            for b in ("streaming", "general"):
+                fields[f"attention_{n}_{b}"] = dict(
+                    shape=row["shape"], ms=row[f"{n}_{b}_ms"],
+                    device_ms=row[f"{n}_{b}_device_ms"],
+                    plain_ms=row[f"{n}_plain_ms"],
+                    library_ms=row[f"{n}_sdpa_ms"],
+                    plain_device_ms=row[f"{n}_plain_device_ms"],
+                    library_device_ms=row[f"{n}_sdpa_device_ms"],
+                    bound_ms=row[f"{n}_bound_ms"],
+                    bound_by=row[f"{n}_bound_by"])
+        fields["attention_bwd_streaming"]["design_floor_ms"] = \
+            row["bwd_design_floor_ms"]
+    return rows, fields
+
+
 def check_against_cpu(A):
     """Phase 4: the port's DeiT-S (full width, 12 blocks) forward and
     gradients on the card (fp32, CUDA kernels) against the same model on
@@ -460,8 +629,7 @@ def check_against_cpu(A):
                  if p.grad is not None]
         res[dev] = (out.logits.detach().cpu(), out.decoder_loss.item(),
                     torch.cat(grads).cpu())
-    by_body = {"attention_fwd": dict(A.attention_fwd.by_body),
-               "attention_bwd": dict(A.attention_bwd.by_body)}
+    counts = by_body(A)
     (lc, dc, gc), (lg, dg, gg) = res["cpu"], res["cuda"]
     # fp32 on both devices; 12 blocks of other summation orders
     e_logits = rel_err(lg, lc)[1]
@@ -471,13 +639,11 @@ def check_against_cpu(A):
     if not (e_logits < 1e-3 and abs(dg - dc) <= 1e-4 * abs(dc)
             and e_grads < 1e-3 and math.isfinite(dg)):
         raise AssertionError("the port on the card disagrees with the CPU")
-    took = {"resident": 0, "general": 12}
-    if by_body != {"attention_fwd": took, "attention_bwd": took}:
-        raise AssertionError(f"fp32 launches by body {by_body}, expected "
-                             f"{took} each")
-    log(f"reference: launches by body {by_body}")
-    return {**{k: by["resident"] for k, by in by_body.items()},
-            **{k + "_general": by["general"] for k, by in by_body.items()}}
+    if counts != only("general", 12, 12):
+        raise AssertionError(f"fp32 launches by body {counts}, expected "
+                             f"12 general each")
+    log(f"reference: launches by body {counts}")
+    return kernel_counts(counts)
 
 
 def run_slice(A, steps=3):
@@ -504,8 +670,7 @@ def run_slice(A, steps=3):
     dt = time.perf_counter() - t0
     launches = {"attention_fwd": A.attention_fwd.launches,
                 "attention_bwd": A.attention_bwd.launches}
-    by_body = {"attention_fwd": dict(A.attention_fwd.by_body),
-               "attention_bwd": dict(A.attention_bwd.by_body)}
+    counts = by_body(A)
 
     vals = {k: v.item() for k, v in m.items()}
     log("slice metrics: " + json.dumps(vals))
@@ -517,17 +682,14 @@ def run_slice(A, steps=3):
     if launches != {"attention_fwd": want, "attention_bwd": want}:
         raise AssertionError(f"launches {launches}, expected {want} each "
                              f"(12 per microbatch, {micro} microbatches)")
-    took = {"resident": want, "general": 0}
-    if by_body != {"attention_fwd": took, "attention_bwd": took}:
+    if counts != only("resident", want, want):
         raise AssertionError(f"the slice did not run the resident body "
-                             f"throughout: {by_body}")
+                             f"throughout: {counts}")
     img_s = batch * steps / dt
     log(f"slice: DeiT-S search step, batch {batch}, bf16: {img_s:.2f} img/s "
         f"({dt / steps * 1e3:.2f} ms/step over {steps} steps); launches "
         f"{launches}, all through the resident body")
-    return {**launches, "attention_fwd_general": by_body["attention_fwd"]
-            ["general"], "attention_bwd_general": by_body["attention_bwd"]
-            ["general"]}
+    return kernel_counts(counts)
 
 
 def _finite(metrics, where):
@@ -556,14 +718,12 @@ def run_lifecycle(A, card, steps=3):
                                                        seed=5)
     cfg, space = bundle.cfg, bundle.space
     gen = torch.Generator(device="cuda").manual_seed(6)
-    totals = {"attention_fwd": {"resident": 0, "general": 0},
-              "attention_bwd": {"resident": 0, "general": 0}}
+    totals = only("resident", 0, 0)
 
     def take_counts():
         """The launches since the last reset, by body; adds them to the
         phase's totals and sets the counts to 0."""
-        got = {"attention_fwd": dict(A.attention_fwd.by_body),
-               "attention_bwd": dict(A.attention_bwd.by_body)}
+        got = by_body(A)
         for k, by in got.items():
             for body, n in by.items():
                 totals[k][body] += n
@@ -673,20 +833,20 @@ def run_lifecycle(A, card, steps=3):
     got_eval = take_counts()
 
     N = cfg.num_patches + cfg.num_tokens
-    blocks = {"resident": 0, "general": 0}
+    blocks = dict.fromkeys(BODIES, 0)
     for _, d, _ in dcfg.block_overrides:
         blocks[A.attention_body(N, d, torch.bfloat16).name] += 1
     micro = steps + 1
     per_body = {b: n * micro for b, n in blocks.items()}
     want_train = {"attention_fwd": per_body, "attention_bwd": per_body}
     want_eval = {"attention_fwd": per_body,
-                 "attention_bwd": {"resident": 0, "general": 0}}
+                 "attention_bwd": dict.fromkeys(BODIES, 0)}
     if got_train != want_train or got_eval != want_eval:
         raise AssertionError(
             f"subnet launches by body: train {got_train} (expected "
             f"{want_train}), eval {got_eval} (expected {want_eval})")
     odd = [d for _, d, _ in dcfg.block_overrides if d % 16]
-    if blocks != {"resident": cfg.depth, "general": 0} or not odd \
+    if blocks != only("resident", cfg.depth, 0)["attention_fwd"] or not odd \
             or len(odd) == cfg.depth:
         raise AssertionError(f"the subnet's blocks by body {blocks}, head "
                              f"dims 8 * odd {odd}: expected every block "
@@ -701,10 +861,7 @@ def run_lifecycle(A, card, steps=3):
         f"{batch / dt_train:.2f} img/s ({dt_train * 1e3:.2f} ms/step, loss "
         f"{loss:.4f}), eval step {batch / dt_eval:.2f} img/s "
         f"({dt_eval * 1e3:.2f} ms/step) over {steps} steps each")
-    return {"attention_fwd": totals["attention_fwd"]["resident"],
-            "attention_bwd": totals["attention_bwd"]["resident"],
-            "attention_fwd_general": totals["attention_fwd"]["general"],
-            "attention_bwd_general": totals["attention_bwd"]["general"]}
+    return kernel_counts(totals)
 
 
 # log.txt keys of the JAX package's scripts/search.py: a search epoch and a
@@ -731,8 +888,7 @@ def run_cli(A, module, argv):
     out, text = run_main(module, argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"attention_fwd": dict(A.attention_fwd.by_body),
-              "attention_bwd": dict(A.attention_bwd.by_body)}
+    counts = by_body(A)
     A.reset_launch_counts()
     return out, text, counts, dt
 
@@ -749,152 +905,145 @@ def _log(path):
         return [json.loads(line) for line in f if line.startswith("{")]
 
 
-def _expect_counts(got, fwd, bwd, where):
-    """All launches through the resident body, as `attention_body` picks it
-    for every bf16 shape of these runs (N <= 197, d a multiple of 8)."""
-    want = {"attention_fwd": {"resident": fwd, "general": 0},
-            "attention_bwd": {"resident": bwd, "general": 0}}
+def _expect_counts(got, fwd, bwd, where, body="resident"):
+    """All launches through one body, as `attention_body` picks it for
+    every bf16 shape of a run: the resident body at N <= 197 (phase 7),
+    the streaming one at 577 (phase 8); d a multiple of 8."""
+    want = only(body, fwd, bwd)
     if got != want:
         raise AssertionError(f"{where}: attention launches {got}, expected "
                              f"{want}")
 
 
-def run_clis(A, card):
+def run_clis(A, card, root):
     """Phase 7: the port's CLIs, in process, DeiT-S at full width and depth:
     search (SYNTHETIC 1024, staging 256 -> 224, batch 64, bf16, fused
     RandAugment m9 + erasing 0.25, Mixup 0.8 / CutMix 1.0 after the finish,
     compress threshold 1.0, 4 epochs), a resumed fifth epoch, export of the
-    best checkpoint, one finetune epoch of the subnet (EMA, device cache)
-    and the eval CLI on its best. Returns the launches of the five runs."""
-    import shutil
-    import tempfile
+    best checkpoint into `root`/exported, one finetune epoch of the subnet
+    (EMA, device cache) and the eval CLI on its best. Returns the launches
+    of the five runs."""
     import torch
     from ofb_tpu_torch.cli import eval as eval_cli
     from ofb_tpu_torch.cli import export, finetune, search
     from ofb_tpu_torch.ops import augment as AUG
 
-    root = tempfile.mkdtemp(prefix="ofb_cli_")
-    totals = {"attention_fwd": 0, "attention_bwd": 0,
-              "attention_fwd_general": 0, "attention_bwd_general": 0}
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
 
     def add(counts):
-        for k, by in counts.items():
-            totals[k] += by["resident"]
-            totals[k + "_general"] += by["general"]
+        for k, n in kernel_counts(counts).items():
+            totals[k] += n
 
-    try:
-        sdir = os.path.join(root, "search")
-        common = ["--data-set", "SYNTHETIC", "--batch-size", "64",
-                  "--output_dir", sdir]
-        search_argv = common + [
-            "--model", "deit_small_patch16_224_mim", "--synthetic-size",
-            "1024", "--accum-iter", "1", "--mixup", "0.8", "--cutmix", "1.0",
-            "--compress-thresh", "1.0"]
-        steps, n_val = 1024 // 64, 1024 // 64
+    sdir = os.path.join(root, "search")
+    common = ["--data-set", "SYNTHETIC", "--batch-size", "64",
+              "--output_dir", sdir]
+    search_argv = common + [
+        "--model", "deit_small_patch16_224_mim", "--synthetic-size",
+        "1024", "--accum-iter", "1", "--mixup", "0.8", "--cutmix", "1.0",
+        "--compress-thresh", "1.0"]
+    steps, n_val = 1024 // 64, 1024 // 64
 
-        # 7.1 search: search epochs, the finish, postsearch epochs, fuse
-        _, text, counts, dt = run_cli(A, search,
-                                      search_argv + ["--epochs", "4"])
-        add(counts)
-        slog = _log(os.path.join(sdir, "log.txt"))
-        if "== finish_search" not in text or "saved model_fused" not in text:
-            raise AssertionError("the search did not finish and fuse")
-        for name in ("running_ckpt", "best", "model_fused", "log.txt",
-                     "alpha.txt"):
-            if not os.path.exists(os.path.join(sdir, name)):
-                raise AssertionError(f"the search wrote no {name}")
-        kinds = []
-        for row in slog:
-            keys = set(row)
-            kinds.append("search" if keys == LOG_KEYS_SEARCH else
-                         "postsearch" if keys == LOG_KEYS_POSTSEARCH else
-                         None)
-            if kinds[-1] is None:
-                raise AssertionError(f"log.txt keys {sorted(keys)} are not "
-                                     "the JAX CLI's")
-            if not all(math.isfinite(v) for k, v in row.items()
-                       if k.startswith("train_loss")):
-                raise AssertionError(f"a loss is not finite: {row}")
-        if "search" not in kinds or "postsearch" not in kinds:
-            raise AssertionError(f"epochs by phase {kinds}: wanted a search "
-                                 "and a postsearch epoch")
-        fused = json.load(open(os.path.join(sdir, "model_fused",
-                                            "meta.json")))
-        if not 0.0 <= fused["fused_acc1"] <= 100.0:
-            raise AssertionError(f"fused accuracy {fused['fused_acc1']}")
-        _expect_counts(counts, 12 * (4 * steps + 5 * n_val), 12 * 4 * steps,
-                       "search")
-        passes = [float(x) * 1e3 for x in re.findall(
-            r"compress pass ([\d.]+)s", text)]
-        ep = _epochs(text)
-        log(f"cli search: {len(ep)} epochs ({', '.join(kinds)}) in {dt:.1f} "
-            f"s; sustained img/s by epoch (log.txt train_img_s) "
-            f"{[round(r['train_img_s'], 2) for r in slog]}; split of each "
-            f"epoch, s (feed, dispatch, readback, compress): "
-            f"{[e[2:] for e in ep]}; {len(passes)} compress passes, host ms "
-            f"{[round(p, 2) for p in passes]}; fused acc1 "
-            f"{fused['fused_acc1']:.3f}; launches {counts}; on {card}")
+    # 7.1 search: search epochs, the finish, postsearch epochs, fuse
+    _, text, counts, dt = run_cli(A, search,
+                                  search_argv + ["--epochs", "4"])
+    add(counts)
+    slog = _log(os.path.join(sdir, "log.txt"))
+    if "== finish_search" not in text or "saved model_fused" not in text:
+        raise AssertionError("the search did not finish and fuse")
+    for name in ("running_ckpt", "best", "model_fused", "log.txt",
+                 "alpha.txt"):
+        if not os.path.exists(os.path.join(sdir, name)):
+            raise AssertionError(f"the search wrote no {name}")
+    kinds = []
+    for row in slog:
+        keys = set(row)
+        kinds.append("search" if keys == LOG_KEYS_SEARCH else
+                     "postsearch" if keys == LOG_KEYS_POSTSEARCH else
+                     None)
+        if kinds[-1] is None:
+            raise AssertionError(f"log.txt keys {sorted(keys)} are not "
+                                 "the JAX CLI's")
+        if not all(math.isfinite(v) for k, v in row.items()
+                   if k.startswith("train_loss")):
+            raise AssertionError(f"a loss is not finite: {row}")
+    if "search" not in kinds or "postsearch" not in kinds:
+        raise AssertionError(f"epochs by phase {kinds}: wanted a search "
+                             "and a postsearch epoch")
+    fused = json.load(open(os.path.join(sdir, "model_fused",
+                                        "meta.json")))
+    if not 0.0 <= fused["fused_acc1"] <= 100.0:
+        raise AssertionError(f"fused accuracy {fused['fused_acc1']}")
+    _expect_counts(counts, 12 * (4 * steps + 5 * n_val), 12 * 4 * steps,
+                   "search")
+    passes = [float(x) * 1e3 for x in re.findall(
+        r"compress pass ([\d.]+)s", text)]
+    ep = _epochs(text)
+    log(f"cli search: {len(ep)} epochs ({', '.join(kinds)}) in {dt:.1f} "
+        f"s; sustained img/s by epoch (log.txt train_img_s) "
+        f"{[round(r['train_img_s'], 2) for r in slog]}; split of each "
+        f"epoch, s (feed, dispatch, readback, compress): "
+        f"{[e[2:] for e in ep]}; {len(passes)} compress passes, host ms "
+        f"{[round(p, 2) for p in passes]}; fused acc1 "
+        f"{fused['fused_acc1']:.3f}; launches {counts}; on {card}")
 
-        # 7.2 resume at the next epoch
-        _, text, counts, dt = run_cli(A, search, search_argv + [
-            "--epochs", "5", "--resume", "--checkpoint",
-            os.path.join(sdir, "running_ckpt")])
-        add(counts)
-        ep = _epochs(text)
-        if "resumed from" not in text or [e[0] for e in ep] != [4]:
-            raise AssertionError(f"the resumed search ran epochs "
-                                 f"{[e[0] for e in ep]}, wanted [4]")
-        _expect_counts(counts, 12 * (steps + 2 * n_val), 12 * steps,
-                       "resumed search")
-        log(f"cli resume: epoch 4 at {ep[0][1]:.2f} img/s, split "
-            f"{ep[0][2:]}; launches {counts}")
+    # 7.2 resume at the next epoch
+    _, text, counts, dt = run_cli(A, search, search_argv + [
+        "--epochs", "5", "--resume", "--checkpoint",
+        os.path.join(sdir, "running_ckpt")])
+    add(counts)
+    ep = _epochs(text)
+    if "resumed from" not in text or [e[0] for e in ep] != [4]:
+        raise AssertionError(f"the resumed search ran epochs "
+                             f"{[e[0] for e in ep]}, wanted [4]")
+    _expect_counts(counts, 12 * (steps + 2 * n_val), 12 * steps,
+                   "resumed search")
+    log(f"cli resume: epoch 4 at {ep[0][1]:.2f} img/s, split "
+        f"{ep[0][2:]}; launches {counts}")
 
-        # 7.3 export of the best checkpoint
-        xdir = os.path.join(root, "exported")
-        (dense, dcfg), text, counts, dt = run_cli(A, export, [
-            "--checkpoint", os.path.join(sdir, "best"), "--out", xdir])
-        add(counts)
-        N = dcfg.num_patches + dcfg.num_tokens
-        bodies = {A.attention_body(N, d, torch.bfloat16).name
-                  for _, d, _ in dcfg.block_overrides}
-        if bodies != {"resident"}:
-            raise AssertionError(f"subnet blocks take bodies {bodies}")
-        log(f"cli export: D {dcfg.embed_dim}, blocks (heads, head dim, mlp) "
-            f"{list(dcfg.block_overrides)} in {dt:.1f} s")
+    # 7.3 export of the best checkpoint
+    xdir = os.path.join(root, "exported")
+    (dense, dcfg), text, counts, dt = run_cli(A, export, [
+        "--checkpoint", os.path.join(sdir, "best"), "--out", xdir])
+    add(counts)
+    N = dcfg.num_patches + dcfg.num_tokens
+    bodies = {A.attention_body(N, d, torch.bfloat16).name
+              for _, d, _ in dcfg.block_overrides}
+    if bodies != {"resident"}:
+        raise AssertionError(f"subnet blocks take bodies {bodies}")
+    log(f"cli export: D {dcfg.embed_dim}, blocks (heads, head dim, mlp) "
+        f"{list(dcfg.block_overrides)} in {dt:.1f} s")
 
-        # 7.4 one finetune epoch, EMA, device cache
-        fdir = os.path.join(root, "finetune")
-        ft_steps, ft_val = 2048 // 64, 2048 // 64
-        fstate, text, counts, dt = run_cli(A, finetune, [
-            "--data-set", "SYNTHETIC", "--batch-size", "64", "--finetune",
-            xdir, "--epochs", "1", "--model-ema", "--cache-device",
-            "--output_dir", fdir])
-        add(counts)
-        flog = _log(os.path.join(fdir, "log.txt"))
-        if not (math.isfinite(flog[-1]["train_loss"])
-                and os.path.exists(os.path.join(fdir, "best", "meta.json"))):
-            raise AssertionError(f"finetune: {flog}")
-        _expect_counts(counts, 12 * (ft_steps + 2 * ft_val), 12 * ft_steps,
-                       "finetune")
-        ep = _epochs(text)
-        log(f"cli finetune: {ep[0][1]:.2f} img/s sustained (log.txt "
-            f"{flog[-1]['train_img_s']:.2f}), split {ep[0][2:]}, loss "
-            f"{flog[-1]['train_loss']:.4f}, acc1 raw "
-            f"{flog[-1]['soft_test_acc1']:.3f} ema "
-            f"{flog[-1]['soft_test_ema_acc1']:.3f}; launches {counts}")
+    # 7.4 one finetune epoch, EMA, device cache
+    fdir = os.path.join(root, "finetune")
+    ft_steps, ft_val = 2048 // 64, 2048 // 64
+    fstate, text, counts, dt = run_cli(A, finetune, [
+        "--data-set", "SYNTHETIC", "--batch-size", "64", "--finetune",
+        xdir, "--epochs", "1", "--model-ema", "--cache-device",
+        "--output_dir", fdir])
+    add(counts)
+    flog = _log(os.path.join(fdir, "log.txt"))
+    if not (math.isfinite(flog[-1]["train_loss"])
+            and os.path.exists(os.path.join(fdir, "best", "meta.json"))):
+        raise AssertionError(f"finetune: {flog}")
+    _expect_counts(counts, 12 * (ft_steps + 2 * ft_val), 12 * ft_steps,
+                   "finetune")
+    ep = _epochs(text)
+    log(f"cli finetune: {ep[0][1]:.2f} img/s sustained (log.txt "
+        f"{flog[-1]['train_img_s']:.2f}), split {ep[0][2:]}, loss "
+        f"{flog[-1]['train_loss']:.4f}, acc1 raw "
+        f"{flog[-1]['soft_test_acc1']:.3f} ema "
+        f"{flog[-1]['soft_test_ema_acc1']:.3f}; launches {counts}")
 
-        # 7.5 eval of the finetune's best
-        stats, text, counts, dt = run_cli(A, eval_cli, [
-            "--checkpoint", os.path.join(fdir, "best"), "--data-set",
-            "SYNTHETIC", "--batch-size", "64"])
-        add(counts)
-        if not (0.0 <= stats["acc1"] <= 100.0
-                and math.isfinite(stats["loss"])):
-            raise AssertionError(f"eval: {stats}")
-        _expect_counts(counts, 12 * 2048 // 64, 0, "eval")
-        log(f"cli eval: {stats} in {dt:.1f} s; launches {counts}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # 7.5 eval of the finetune's best
+    stats, text, counts, dt = run_cli(A, eval_cli, [
+        "--checkpoint", os.path.join(fdir, "best"), "--data-set",
+        "SYNTHETIC", "--batch-size", "64"])
+    add(counts)
+    if not (0.0 <= stats["acc1"] <= 100.0
+            and math.isfinite(stats["loss"])):
+        raise AssertionError(f"eval: {stats}")
+    _expect_counts(counts, 12 * 2048 // 64, 0, "eval")
+    log(f"cli eval: {stats} in {dt:.1f} s; launches {counts}")
 
     # the train transform at batch 256 (staging 256 -> 224), device time,
     # next to the search step at batch 256
@@ -914,6 +1063,73 @@ def run_clis(A, card):
         f"RandAugment m9 2 layers, erasing) {aug_ms:.3f} ms device time, its "
         f"draws {draw_ms:.3f} ms; the search step at batch 256 "
         f"{step_ms:.3f} ms device time")
+    return totals
+
+
+def run_384(A, card, root):
+    """Phase 8: the 384-pixel path through the CLIs, in process, bf16,
+    batch 64, SYNTHETIC at staging 256 -> 384 (577 tokens): `cli.finetune
+    --model deit_small_patch16_384 --input-size 384 --from-scratch` for one
+    epoch (device cache, EMA) and `cli.eval` of its best; then phase 7's
+    exported subnet (`root`/exported, searched at 224) finetuned one epoch
+    at --input-size 384, its pos-embed resized 197 -> 577, and evaluated.
+    Every attention launch of the four runs must take the streaming body.
+    Returns the launches of the four runs."""
+    import torch
+    from ofb_tpu_torch.cli import eval as eval_cli
+    from ofb_tpu_torch.cli import finetune
+    from ofb_tpu_torch.core import checkpoint as ckpt
+    from ofb_tpu_torch.models.vit import ModelCfg
+
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+    steps = n_val = 2048 // 64           # SYNTHETIC's train and val sets
+    runs = (("DeiT-S-384 from scratch",
+             ["--model", "deit_small_patch16_384", "--from-scratch"]),
+            ("phase 7's exported subnet",
+             ["--finetune", os.path.join(root, "exported")]))
+    for i, (what, argv) in enumerate(runs):
+        fdir = os.path.join(root, f"finetune_384_{i}")
+        _, text, counts, dt = run_cli(A, finetune, argv + [
+            "--data-set", "SYNTHETIC", "--batch-size", "64", "--input-size",
+            "384", "--epochs", "1", "--model-ema", "--cache-device",
+            "--output_dir", fdir])
+        meta = json.load(open(os.path.join(fdir, "best", "meta.json")))
+        cfg = ckpt.model_cfg_from_meta(meta["model_cfg"], ModelCfg)
+        N = cfg.num_patches + cfg.num_tokens
+        dims = sorted({cfg.block_dims(b)[1] for b in range(cfg.depth)})
+        bodies = {A.attention_body(N, d, torch.bfloat16).name for d in dims}
+        if (cfg.img_size, N) != (384, 577) or bodies != {"streaming"}:
+            raise AssertionError(f"{what}: img_size {cfg.img_size}, {N} "
+                                 f"tokens, head dims {dims} on {bodies}")
+        flog = _log(os.path.join(fdir, "log.txt"))
+        if not math.isfinite(flog[-1]["train_loss"]):
+            raise AssertionError(f"finetune at 384 ({what}): {flog}")
+        _expect_counts(counts, cfg.depth * (steps + 2 * n_val),
+                       cfg.depth * steps, f"finetune at 384 ({what})",
+                       "streaming")
+        for k, n in kernel_counts(counts).items():
+            totals[k] += n
+        ep = _epochs(text)
+        log(f"cli finetune at 384, {what}: D {cfg.embed_dim}, head dims "
+            f"{dims}, {N} tokens; {ep[0][1]:.2f} img/s sustained (log.txt "
+            f"{flog[-1]['train_img_s']:.2f}), split {ep[0][2:]}, loss "
+            f"{flog[-1]['train_loss']:.4f}, acc1 raw "
+            f"{flog[-1]['soft_test_acc1']:.3f} ema "
+            f"{flog[-1]['soft_test_ema_acc1']:.3f} in {dt:.1f} s; launches "
+            f"{counts}; on {card}")
+
+        stats, text, counts, dt = run_cli(A, eval_cli, [
+            "--checkpoint", os.path.join(fdir, "best"), "--data-set",
+            "SYNTHETIC", "--batch-size", "64"])
+        if not (0.0 <= stats["acc1"] <= 100.0
+                and math.isfinite(stats["loss"])):
+            raise AssertionError(f"eval at 384 ({what}): {stats}")
+        _expect_counts(counts, cfg.depth * n_val, 0,
+                       f"eval at 384 ({what})", "streaming")
+        for k, n in kernel_counts(counts).items():
+            totals[k] += n
+        log(f"cli eval at 384, {what}: {stats} in {dt:.1f} s; launches "
+            f"{counts}")
     return totals
 
 
@@ -944,31 +1160,45 @@ def main():
     errs = check_kernels(A)
     times = time_kernels(A)
     subnet_times = time_subnet_shapes(A)
+    stream_times, stream_fields = time_streaming(A)
     fp32 = check_against_cpu(A)
     launches = run_slice(A)
     lifecycle = run_lifecycle(A, smi)
-    cli = run_clis(A, smi)
+    root = tempfile.mkdtemp(prefix="ofb_cli_")
+    try:
+        cli = run_clis(A, smi, root)
+        at384 = run_384(A, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     kernels = []
     for name, src, line in (
             ("attention_fwd", "attention_fwd_resident.cu", 68),
             ("attention_bwd", "attention_bwd_resident.cu", 81),
             ("attention_fwd_general", "attention_fwd.cu", 68),
-            ("attention_bwd_general", "attention_bwd.cu", 81)):
+            ("attention_bwd_general", "attention_bwd.cu", 81),
+            ("attention_fwd_streaming", "attention_fwd_streaming.cu", 115),
+            ("attention_bwd_streaming", "attention_bwd_streaming.cu", 127)):
+        phases = dict(launches_fp32=fp32[name],
+                      launches_search=launches[name],
+                      launches_lifecycle=lifecycle[name],
+                      launches_cli=cli[name], launches_384=at384[name])
+        # the streaming body's times are at 577 tokens; the general body's
+        # at 197 (its 577-token times stand beside them)
+        timed = stream_fields[name] if name.endswith("_streaming") \
+            else dict(times[name])
+        if name.endswith("_general"):
+            timed.update({k + "_577": v for k, v in
+                          stream_fields[name].items() if k != "bound_by"})
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
-            replaces=f"{ATTN_SRC}:{line}",
-            launches=fp32[name] + launches[name] + lifecycle[name]
-            + cli[name],
-            launches_fp32=fp32[name],
-            launches_search=launches[name],
-            launches_lifecycle=lifecycle[name],
-            launches_cli=cli[name],
-            max_abs_err=errs[name], **times[name]))
+            replaces=f"{ATTN_SRC}:{line}", launches=sum(phases.values()),
+            **phases, max_abs_err=errs[name], **timed))
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels no driven path launched: {idle}")
     log(json.dumps({"subnet_attention": subnet_times}))
+    log(json.dumps({"attention_577": stream_times}))
     log("device time: profiler sessions taken as whole {whole}, taken as "
         "agreeing {agreed}, dropped {dropped}; times from queued_time_ms "
         "{queued}".format(**SESSIONS))

@@ -15,7 +15,10 @@ subnet of mixed head geometry) and then time
   eval         the dense eval step on the exported subnet.
 
 With `--subnet DIR` the finetune and eval phases take the subnet of an
-exported checkpoint (`cli.export`'s) instead, and skip the search.
+exported checkpoint (`cli.export`'s) instead, and skip the search. With
+`--input-size S` they run the subnet on S x S images, its pos-embed resized
+to the new patch grid as `cli.finetune --input-size S` resizes it (384: 577
+tokens, the streaming attention body's).
 
 `--phase augment` times `ops.augment.apply_train_augment` alone instead:
 the train transform of a batch of SYNTHETIC staging images (256 -> 224,
@@ -33,7 +36,7 @@ dense supernet's (the FLOPs model's total), for the subnet its own.
 
 Usage: python -m ofb_tpu_torch.bench [--model deit_small] [--batch 256]
        [--steps 20] [--phase search|postsearch|finetune|eval|augment]
-       [--subnet DIR] [--profile N]
+       [--subnet DIR] [--input-size S] [--profile N]
 Prints one JSON line; the phases that converge the search also report the
 host time of the converging `compress` pass and of a pass that finds
 nothing to prune. Needs a CUDA device. With --profile N it then traces N
@@ -184,24 +187,32 @@ def build_postsearch_step(bundle, batch: int, *, device="cuda"):
 
 
 def build_subnet_steps(bundle, state, batch: int, *, device="cuda",
-                       subnet=None):
+                       subnet=None, input_size=None):
     """Export the converged supernet (or take `subnet`, a (dense params,
     dense cfg) pair) and build the finetune stage on the subnet: (dense
     params, dense cfg, meta (None for `subnet`), train state, train step,
     eval step), with `FinetuneConfig`'s defaults (layer decay 0.95, weight
-    decay 0.05, Mixup 0.8 / CutMix 1.0, EMA) and a cosine schedule."""
+    decay 0.05, Mixup 0.8 / CutMix 1.0, EMA) and a cosine schedule. With
+    `input_size` the subnet takes images of that size, its pos-embed
+    resized to the new patch grid."""
+    import dataclasses
     from .config import FinetuneConfig
     from .core.export import export_subnet
     from .core.lr_decay import build_finetune_optimizer
     from .core.optim import make_schedule
     from .core.steps import (TrainState, make_eval_step_dense,
                              make_train_step)
+    from .models.pos_embed import interpolate_pos_embed
 
     if subnet is None:
         dense, dcfg, meta = export_subnet(state.params, state.arch,
                                           bundle.space, bundle.cfg)
     else:
         (dense, dcfg), meta = subnet, None
+    if input_size and input_size != dcfg.img_size:
+        dcfg = dataclasses.replace(dcfg, img_size=input_size)
+        dense.pos_embed = torch.nn.Parameter(interpolate_pos_embed(
+            dense.pos_embed.detach(), dcfg.num_patches, dcfg.num_tokens))
     fcfg = FinetuneConfig()
     fcfg.data.batch_size = batch
     fcfg = fcfg.resolve(1)
@@ -332,6 +343,9 @@ def main():
     ap.add_argument("--subnet", default="",
                     help="finetune / eval: an exported checkpoint's subnet "
                          "instead of the forced one")
+    ap.add_argument("--input-size", type=int, default=224,
+                    help="finetune / eval: the image size; the subnet's "
+                         "pos-embed is resized to its patch grid")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps and print a breakdown")
     args = ap.parse_args()
@@ -357,8 +371,10 @@ def main():
     from .models.vit import dense_flops
     from .ops.flops import model_flops
 
-    if args.subnet and args.phase not in ("finetune", "eval"):
-        ap.error("--subnet is for the finetune and eval phases")
+    if (args.subnet or args.input_size != 224) \
+            and args.phase not in ("finetune", "eval"):
+        ap.error("--subnet and --input-size are for the finetune and eval "
+                 "phases")
     gen = torch.Generator(device="cuda").manual_seed(2)
     extra = {}
     passes = 6.0
@@ -397,10 +413,14 @@ def main():
             return m["loss_total"]
     elif args.phase in ("finetune", "eval"):
         dense, dcfg, meta, fstate, train, evaluate = build_subnet_steps(
-            bundle, state, args.batch, subnet=subnet)
+            bundle, state, args.batch, subnet=subnet,
+            input_size=args.input_size)
         box["state"] = fstate
+        if images.shape[2] != dcfg.img_size:
+            images, labels = random_batch(dcfg, args.batch, "cuda")
         gmacs = dense_flops(dcfg)
-        extra.update(embed_dim=dcfg.embed_dim,
+        extra.update(embed_dim=dcfg.embed_dim, input_size=dcfg.img_size,
+                     tokens=dcfg.num_patches + dcfg.num_tokens,
                      block_dims=[list(b) for b in dcfg.block_overrides])
         if args.phase == "finetune":
             def call():

@@ -220,9 +220,13 @@ def main(args):
         master_print("device cache staged")
 
     params, cfg = load_searched_model(args.finetune, args, nb_classes, dev)
+    # the model takes the input size (reference finetune.py:331-349), so a
+    # subnet searched at 224 finetunes at --input-size 384 with its
+    # pos-embed resized below; scripts/finetune.py keeps the checkpoint's
+    # img_size, and its resize never runs
     cfg = dataclasses.replace(cfg, num_classes=nb_classes,
                               drop_path_rate=args.drop_path,
-                              drop_rate=args.drop)
+                              drop_rate=args.drop, img_size=out_size)
     want_tokens = cfg.num_patches + cfg.num_tokens
     if params.pos_embed.shape[1] != want_tokens:
         params.pos_embed = torch.nn.Parameter(interpolate_pos_embed(

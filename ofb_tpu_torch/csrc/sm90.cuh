@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the resident attention kernels
-// (attention_fwd_resident.cu, attention_bwd_resident.cu): asynchronous
-// copies into swizzled shared-memory tiles, `wgmma` matrix descriptors and
-// instructions, and the store of an accumulator tile.
+// Hopper (sm_90a) building blocks of the resident and the streaming
+// attention kernels (attention_{fwd,bwd}_{resident,streaming}.cu):
+// asynchronous copies into swizzled shared-memory tiles, `wgmma` matrix
+// descriptors and instructions, and the store of an accumulator tile.
 //
 // Tiles. A tile of R rows x DP head-dim columns of bf16 (DP = 64 or 128) is
 // kept as DP / 64 panels, R rows of 128 bytes each, panel after panel. Inside
@@ -75,6 +75,13 @@ __device__ __forceinline__ uint32_t chunk_offset(int rows, int r, int c) {
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// 4 bytes (one fp32 row term); with bytes = 0 the 4 bytes become zeros.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
@@ -281,6 +288,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 }
 
 #undef OFB_ACC8
+
+// Pin registers that an asynchronous `wgmma` reads or writes at this point
+// of the program: the compiler sees them read and written here, so it moves
+// no access to them across the fence. Put one after the `wgmma_wait` that
+// retires a product, before its accumulator is read or rescaled (the wait
+// itself names no register).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
 
 // ---------------------------------------------------------------------------
 // registers

@@ -2,8 +2,8 @@
 PyTorch twins.
 
 Port of ofb_tpu/ops/pallas_attention.py. The TPU kernel pair
-(`_fwd_kernel`, `_bwd_kernel`) becomes `csrc/attention_fwd.cu` and
-`csrc/attention_bwd.cu`; the custom VJP `_mha_pallas` becomes the
+(`_fwd_kernel`, `_bwd_kernel`) becomes the three kernel bodies below
+(`csrc/attention_{fwd,bwd}*.cu`); the custom VJP `_mha_pallas` becomes the
 autograd Function `_FusedMHA`; `fused_mha` folds the (runtime) scale into q
 in fp32 and calls it. Every attention call of the supernet goes through
 here (models/vit.py `_attend`).
@@ -14,17 +14,22 @@ plain twins `attention_fwd_reference` / `attention_bwd_reference`, which
 repeat the kernels' arithmetic. Each wrapper counts its launches in
 `.launches`, and per body in `.by_body`.
 
-Two kernel bodies, both hand-written. `resident` (csrc/*_resident.cu) keeps
-a whole head's K and V (or Q and dO) in shared memory and the scores in
-`wgmma` registers; it takes bf16, up to 256 tokens, every head dim the
+Three kernel bodies, all hand-written. `resident` (csrc/*_resident.cu)
+keeps a whole head's K and V (or Q and dO) in shared memory and the scores
+in `wgmma` registers; it takes bf16, up to 256 tokens, every head dim the
 wrappers take (a multiple of 8 up to 128; 8 * odd ones, such as the 24, 40
 and 56 of exported subnets, run zero-padded to the next multiple of 16 in
-shared memory) and rows that start on 16 bytes. `general` (csrc/
-attention_fwd.cu, attention_bwd.cu) tiles both sides and takes every shape
-and type the wrappers accept; it serves what the resident body does not:
-more than 256 tokens, unaligned views, fp32. `attention_body` picks one
-from the shape, the type and the alignment alone; a body that fails to
-build or launch raises, nothing reroutes.
+shared memory) and rows that start on 16 bytes. `streaming` (csrc/
+*_streaming.cu) keeps 64 or 128 query rows (or keys) of a head in shared
+memory and streams the other side through a ring of 64-row tiles, with an
+online softmax in `wgmma` registers; it takes what the resident body takes
+at any token count and serves more than 256 tokens (DeiT at 384 pixels:
+577).
+`general` (csrc/attention_fwd.cu, attention_bwd.cu) tiles both sides and
+takes every shape and type the wrappers accept; it serves what the other
+two do not: unaligned views and fp32. `attention_body` picks one from the
+shape, the type and the alignment alone; a body that fails to build or
+launch raises, nothing reroutes.
 
 Layout is the model's own (B, N, H, d) on both sides. q, k, v may be
 strided views (the search step hands in views of the qkv buffer); the
@@ -127,21 +132,25 @@ def _aligned16(t) -> bool:
 
 def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     """Which kernel body serves (N tokens, head dim d, dtype), from the
-    shape, the type and the rows' 16-byte alignment alone: bf16, 1 <= N <=
-    256, d a multiple of 8 in [8, 128] and aligned rows take the resident
-    body. Its numbers repeat the arithmetic of csrc/attention_*_resident.cu:
-    the forward's keys padded to 64 * ceil(N / 64), or to 208 for
-    192 < N <= 208; tiles of 64 head-dim columns when d16 = 16 * ceil(d /
-    16) <= 64, else 128; 1024 bytes of alignment slack. The backward is one
-    fused kernel for d16 <= 64 (q, k, v, do, o in whole 64-row tiles, three
-    output stages, lse and delta) and a dq and a dk/dv kernel above (the
-    resident side padded to 16)."""
-    if dtype != torch.bfloat16 or not 1 <= N <= 256 or d % 8 != 0 \
+    shape, the type and the rows' 16-byte alignment alone: bf16, d a
+    multiple of 8 in [8, 128] and aligned rows take the resident body for
+    1 <= N <= 256 and the streaming body above; everything else the general
+    body. The numbers repeat the arithmetic of csrc/attention_*_resident.cu
+    and csrc/attention_*_streaming.cu: tiles of 64 head-dim columns when
+    d16 = 16 * ceil(d / 16) <= 64, else 128; 1024 bytes of alignment slack.
+    The resident forward pads the keys to 64 * ceil(N / 64), or to 208 for
+    192 < N <= 208; its backward is one fused kernel for d16 <= 64 (q, k, v,
+    do, o in whole 64-row tiles, three output stages, lse and delta) and a
+    dq and a dk/dv kernel above (the resident side padded to 16). The
+    streaming body walks the keys in tiles of 64."""
+    if dtype != torch.bfloat16 or N < 1 or d % 8 != 0 \
             or not 8 <= d <= 128 or not aligned:
         return Body("general", 0, 0, 0)
     dp = 64 if d <= 64 else 128                          # d16 <= 64
     tile = 64 * dp * 2                                   # 64 rows, bf16
     rows64 = 64 * -(-N // 64)                            # whole 64-row tiles
+    if N > 256:
+        return _streaming_body(rows64, dp, tile)
     keys = 208 if 192 < N <= 208 else rows64
     fwd = 2 * keys * dp * 2 + 2 * tile + 1024            # k, v; 2 q buffers
     if dp == 64:
@@ -154,6 +163,17 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     return Body("resident", keys, fwd, bwd)
 
 
+def _streaming_body(keys: int, dp: int, tile: int) -> Body:
+    """The streaming body's shared memory: resident rows (128 of q; 64 of q
+    and do with their lse and delta; 128 of k and v) and a ring of 64-row
+    tiles (four stages of k and v; three of k and v; three of q, do and
+    their 64 lse and delta in 1024 bytes)."""
+    fwd = 128 * dp * 2 + 4 * 2 * tile + 1024
+    dq = 2 * tile + 3 * 2 * tile + 2 * 64 * 4 + 1024
+    dkdv = 2 * 128 * dp * 2 + 3 * (2 * tile + 1024) + 1024
+    return Body("streaming", keys, fwd, max(dq, dkdv))
+
+
 _ENTRIES = {
     # library and C entry, number of tensor pointers, whether dtype leads
     ("fwd", "general"): ("attention_fwd", "ofb_attention_fwd", 5, True),
@@ -162,6 +182,10 @@ _ENTRIES = {
                           "ofb_attention_fwd_resident", 5, False),
     ("bwd", "resident"): ("attention_bwd_resident",
                           "ofb_attention_bwd_resident", 10, False),
+    ("fwd", "streaming"): ("attention_fwd_streaming",
+                           "ofb_attention_fwd_streaming", 5, False),
+    ("bwd", "streaming"): ("attention_bwd_streaming",
+                           "ofb_attention_bwd_streaming", 10, False),
 }
 
 
@@ -188,8 +212,10 @@ def _launch(wrapper, which: str, body, tensors, outs, dims):
         body = fit
     if (which, body) not in _ENTRIES:
         raise ValueError(f"no attention body {body!r}")
-    if body == "resident" and fit != "resident":
-        raise ValueError(f"the resident attention body does not take shape "
+    # the streaming body takes the resident body's shapes at any N
+    if body == "resident" and fit != "resident" \
+            or body == "streaming" and fit == "general":
+        raise ValueError(f"the {body} attention body does not take shape "
                          f"{tuple(q.shape)}, {q.dtype}, strides {q.stride()}")
     st = _strides(*tensors)
     args = [t.data_ptr() for t in tensors + outs] + list(dims) + [
@@ -248,7 +274,7 @@ def attention_bwd(q, k, v, o, lse, do, body=None):
 def reset_launch_counts():
     for wrapper in (attention_fwd, attention_bwd):
         wrapper.launches = 0
-        wrapper.by_body = {"resident": 0, "general": 0}
+        wrapper.by_body = {"resident": 0, "streaming": 0, "general": 0}
 
 
 reset_launch_counts()

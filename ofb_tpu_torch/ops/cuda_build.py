@@ -29,6 +29,8 @@ SOURCES = {
     "attention_bwd": "attention_bwd.cu",
     "attention_fwd_resident": "attention_fwd_resident.cu",
     "attention_bwd_resident": "attention_bwd_resident.cu",
+    "attention_fwd_streaming": "attention_fwd_streaming.cu",
+    "attention_bwd_streaming": "attention_bwd_streaming.cu",
 }
 _HEADERS = ("attention_common.cuh", "sm90.cuh")
 

@@ -3,11 +3,12 @@
 On the CPU the wrappers run the plain twins of the CUDA kernels, so this
 holds the twins (forward, backward and the autograd Function around them)
 against JAX's reference path, its Pallas kernel pair in interpret mode,
-and `jax.grad` through the Pallas custom VJP. The CUDA kernels themselves
-(two bodies, resident and general) are held against the same twins on the
-card by chip_smoke.py; here the choice between the bodies, the padding and
-the shared memory the resident one asks for are checked, since they are
-plain Python.
+and `jax.grad` through the Pallas custom VJP, at DeiT's 197 tokens and at
+the streaming body's counts above 256 (577 = DeiT at 384 pixels). The CUDA
+kernels themselves (three bodies: resident, streaming and general) are held
+against the same twins on the card by chip_smoke.py; here the choice
+between the bodies, the padding and the shared memory the resident and the
+streaming ones ask for are checked, since they are plain Python.
 
 Tolerance: fp32 everywhere; the frameworks sum in other orders, so values
 and gradients agree to rtol 1e-5 / atol 2e-6 (the JAX package's own
@@ -175,8 +176,13 @@ def test_cpu_path_counts_no_launch_and_bad_inputs_raise():
     (197, 40, BF16, True, "resident"),       # exported subnets' head dims
     (197, 56, BF16, True, "resident"),
     (197, 72, BF16, True, "resident"),       # padded to 80, 128-column tiles
-    (257, 64, BF16, True, "general"),        # more keys than one pass holds
-    (257, 40, BF16, True, "general"),
+    (257, 64, BF16, True, "streaming"),      # more keys than one pass holds
+    (257, 40, BF16, True, "streaming"),
+    (577, 64, BF16, True, "streaming"),      # DeiT at 384 pixels
+    (577, 24, BF16, True, "streaming"),      # its subnets' 8 * odd heads
+    (1025, 120, BF16, True, "streaming"),
+    (577, 64, F32, True, "general"),         # fp32 at any token count
+    (577, 64, BF16, False, "general"),       # unaligned at any token count
     (197, 64, F32, True, "general"),         # fp32 stays off the tensor cores
     (197, 40, F32, True, "general"),
     (197, 64, BF16, False, "general"),       # rows not on 16 bytes
@@ -219,6 +225,69 @@ def test_resident_shared_memory_fits_a_block(d):
     assert 2 * (deit.smem_fwd + 1024) <= 228 * 1024
 
 
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_streaming_shared_memory_fits_a_block(d):
+    """Every head dim the streaming body takes, at any token count, asks
+    for no more shared memory than a Hopper block may have, and for what
+    its kernels lay out: resident rows (128 of q; 64 of q and do with their
+    lse and delta; 128 of k and v), a ring of 64-row tiles (four stages of
+    k and v in the forward, three in the dq kernel, three of q, do and
+    1024 bytes of their row terms in the dk/dv kernel), 1024 bytes of
+    slack.
+    Head dims 8 * odd lay out as the next multiple of 16; the keys walk in
+    whole tiles of 64."""
+    dp = 64 if d <= 64 else 128
+    tile = 64 * dp * 2
+    for N in (257, 300, 385, 577, 1025, 4097):
+        body = A.attention_body(N, d, BF16)
+        assert body.name == "streaming"
+        assert body.padded_keys == 64 * -(-N // 64) >= N
+        assert body.smem_fwd == 128 * dp * 2 + 4 * 2 * tile + 1024
+        assert body.smem_bwd == max(
+            2 * tile + 3 * 2 * tile + 2 * 64 * 4 + 1024,
+            2 * 128 * dp * 2 + 3 * (2 * tile + 1024) + 1024)
+        assert 0 < body.smem_fwd <= A.MAX_SMEM
+        assert 0 < body.smem_bwd <= A.MAX_SMEM
+    deit = A.attention_body(577, 64, BF16)
+    assert (deit.smem_fwd, deit.smem_bwd) == (82944, 86016)
+    # two blocks of the forward or of either backward kernel fit an SM's
+    # 228 KB at d16 <= 64 (1 KB reserved a block), as their registers allow
+    assert 2 * (deit.smem_fwd + 1024) <= 228 * 1024
+    assert 2 * (deit.smem_bwd + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("shape", [(1, 577, 2, 40), (1, 300, 1, 64)])
+def test_twins_above_256_tokens_match_jax_and_pallas(shape):
+    """The streaming body's token counts: DeiT at 384 pixels with an
+    exported subnet's 8 * odd head, and a ragged count (300 = 4 x 64 +
+    44). Forward against JAX's reference path and its Pallas kernel in
+    interpret mode; backward against the Pallas backward kernel and
+    `jax.grad` through the custom VJP."""
+    q, k, v = qkv(*shape, seed=12)
+    cot = qkv(*shape, seed=13)[0]
+    scale = 0.2
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = A.fused_mha(tq, tk, tv, scale)
+    close(got, JA.fused_mha(q, k, v, scale, force=False))
+    close(got, JA.fused_mha(q, k, v, scale, force=True, interpret=True))
+    qs = (q * scale).astype(np.float32)
+    want = JA._mha_bwd_pallas(*(x.transpose(0, 2, 1, 3)
+                                for x in (qs, k, v, cot)), interpret=True)
+    twin = A.attention_bwd_reference(*map(torch.from_numpy, (qs, k, v, cot)))
+    for g, w in zip(twin, want):
+        close(g, np.asarray(w).transpose(0, 2, 1, 3))
+
+    def loss(q, k, v):
+        return jnp.sum(JA.fused_mha(q, k, v, scale, force=True,
+                                    interpret=True) * cot)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    (A.fused_mha(tq, tk, tv, scale) * torch.from_numpy(cot)).sum().backward()
+    for t, g in zip((tq, tk, tv), grads):
+        close(t.grad, g)
+
+
 def test_alignment_of_views():
     buf = torch.zeros((2, 17, 3, 2, 16), dtype=BF16)
     assert all(A._aligned16(buf[:, :, i]) for i in range(3))
@@ -232,22 +301,24 @@ def test_cpu_tensors_run_the_twins_whatever_body_is_named():
     q, k, v = (torch.from_numpy(x).to(BF16) for x in qkv(2, 197, 2, 64, seed=6))
     do = torch.from_numpy(qkv(2, 197, 2, 64, seed=7)[0]).to(BF16)
     want_o, want_lse = A.attention_fwd_reference(q, k, v)
-    for body in (None, "resident", "general"):
+    for body in (None, "resident", "streaming", "general"):
         o, lse = A.attention_fwd(q, k, v, body=body)
         assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
         got = A.attention_bwd(q, k, v, o, lse, do, body=body)
         for g, w in zip(got, A.attention_bwd_reference(q, k, v, do)):
             assert torch.equal(g, w)
     for w in (A.attention_fwd, A.attention_bwd):
-        assert w.launches == 0 and w.by_body == {"resident": 0, "general": 0}
+        assert w.launches == 0 and w.by_body == {"resident": 0,
+                                                 "streaming": 0, "general": 0}
 
 
 def test_a_named_body_that_does_not_fit_raises_before_any_launch():
     A.reset_launch_counts()
     q, k, v = map(torch.from_numpy, qkv())               # fp32
-    with pytest.raises(ValueError, match="resident"):
-        A._launch(A.attention_fwd, "fwd", "resident", [q, k, v], [],
-                  tuple(q.shape))
+    for body in ("resident", "streaming"):
+        with pytest.raises(ValueError, match=body):
+            A._launch(A.attention_fwd, "fwd", body, [q, k, v], [],
+                      tuple(q.shape))
     with pytest.raises(ValueError, match="no attention body"):
         A._launch(A.attention_fwd, "fwd", "flash", [q, k, v], [],
                   tuple(q.shape))
