@@ -69,10 +69,32 @@ which raises (and so exits non-zero) on failure:
      0, must take the streaming body (577 tokens), none the resident or
      the general.
 
-The line before the last is the kernels' JSON (`launches` sums the five
+  9. the planned path (the epoch's plan on the device, each step one CUDA
+     graph replay), DeiT-S at full width and depth, bf16, batch 64, from a
+     device cache of uint8 staging images: (a) the planned search step's
+     warm-up, capture and replays against eager runs of the same planned
+     function from the same state and generator seed (ArchState
+     bit-identical, the metrics and every other tensor of the state within
+     1e-3 of the leaf's largest magnitude, the largest difference printed),
+     then the same for the planned postsearch step after a forced
+     convergence and the planned train step of the exported subnet;
+     (b) a profiler trace of one replay of the search and of the train step
+     counts 12 + 12 attention launches, all on the resident body, and the
+     counters (a replay adds its capture's launches) agree; (c) in process
+     through the CLIs: `cli.search --cache-device --planned-epoch` (search,
+     compress, the finish, the planned postsearch step, the fuse),
+     `cli.finetune --cache-device --planned-epoch --distillation-type hard
+     --teacher-model regnety_160` of phase 7's export (a seeded RegNetY-160
+     teacher in every step) and `cli.search --pretrained_path` from a DeiT-S
+     state dict written from a seed; each run's launches counted from 0
+     (replays included), its captures and replays, and its epoch img/s
+     beside phase 7's classic runs.
+
+The line before the last is the kernels' JSON (`launches` sums the six
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
-`launches_cli` and `launches_384` give each); the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+`launches_cli`, `launches_384` and `launches_planned` give each); the last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}.
 """
 
 import json
@@ -127,6 +149,13 @@ BODIES = ("resident", "streaming", "general")
 # fp32 logits of two forms of one model on the card, as max |a - b| over
 # max |b|: 12 blocks of fp32 sums in other orders (TF32 off)
 TOL_LOGITS = 1e-4
+# graph replays of a planned step against eager runs of the same function,
+# as max |graph - eager| / max |eager| per leaf: the same kernels on the same
+# inputs (bit-identical expected), with room for a library kernel that sums
+# with atomics in another order
+TOL_GRAPH = 1e-3
+# the classic CLI runs' epoch img/s (phase 7), printed beside the planned
+RATES = {}
 ATTN_SRC = "ofb_tpu/ops/pallas_attention.py"
 
 
@@ -978,6 +1007,7 @@ def run_clis(A, card, root):
     passes = [float(x) * 1e3 for x in re.findall(
         r"compress pass ([\d.]+)s", text)]
     ep = _epochs(text)
+    RATES["search"] = [round(e[1], 1) for e in ep]
     log(f"cli search: {len(ep)} epochs ({', '.join(kinds)}) in {dt:.1f} "
         f"s; sustained img/s by epoch (log.txt train_img_s) "
         f"{[round(r['train_img_s'], 2) for r in slog]}; split of each "
@@ -1028,6 +1058,7 @@ def run_clis(A, card, root):
     _expect_counts(counts, 12 * (ft_steps + 2 * ft_val), 12 * ft_steps,
                    "finetune")
     ep = _epochs(text)
+    RATES["finetune"] = round(ep[0][1], 1)
     log(f"cli finetune: {ep[0][1]:.2f} img/s sustained (log.txt "
         f"{flog[-1]['train_img_s']:.2f}), split {ep[0][2:]}, loss "
         f"{flog[-1]['train_loss']:.4f}, acc1 raw "
@@ -1133,6 +1164,245 @@ def run_384(A, card, root):
     return totals
 
 
+def graph_vs_eager(what, pstep, state, batch, search, K=3):
+    """K + 2 calls of a planned step from copies of `state` over one device
+    cache and plan, the generator at one seed: eagerly through the step's
+    own function, and through the `PlannedStep` (two eager warm-up calls,
+    the capture, then replays). The ArchState must be bit-identical, the
+    packed outputs and every other tensor of the state within TOL_GRAPH of
+    the leaf's largest magnitude. Returns (the graph run's `PlannedCalls`,
+    the largest difference)."""
+    import copy
+    import torch
+    from ofb_tpu_torch.bench import PlannedCalls
+    from ofb_tpu_torch.core.steps import named_tensors
+
+    runs = {}
+    for kind in ("eager", "graph"):
+        box = {"state": copy.deepcopy(state)}
+        calls = PlannedCalls(pstep, box, batch, K + 6, search=search,
+                             images=256, seed=9)
+        outs = []
+        for _ in range(K + 2):
+            getattr(calls, kind)()
+            outs.append(calls.out.detach().float().reshape(-1).clone())
+        torch.cuda.synchronize()
+        runs[kind] = (box["state"], outs, calls)
+    (es, eo, _), (gs, go, calls) = runs["eager"], runs["graph"]
+    if pstep.captures != 1 or pstep.replays != K:
+        raise AssertionError(f"{what}: {pstep.captures} captures, "
+                             f"{pstep.replays} replays; wanted 1 and {K}")
+    worst, n_leaves = ("", 0.0), 0
+    pairs = [(f"output {i}", a, b) for i, (a, b) in enumerate(zip(go, eo))]
+    pairs += [(n, a, b) for (n, a), (_, b) in zip(named_tensors(gs),
+                                                  named_tensors(es))]
+    for n, a, b in pairs:
+        n_leaves += 1
+        if n.startswith("arch.") or n == "step" or not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {n} differs between the "
+                                     "graph replays and the eager runs")
+            continue
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: {n} is not finite")
+        d = ((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp_min(1e-30)).item()
+        if d > worst[1]:
+            worst = (n, d)
+    if worst[1] > TOL_GRAPH:
+        raise AssertionError(f"{what}: graph replays and eager runs differ "
+                             f"at {worst[0]} by {worst[1]:.3e}")
+    log(f"planned {what}: {K + 2} calls (2 eager warm-up, the capture, {K} "
+        f"replays) against {K + 2} eager calls: ArchState bit-identical, "
+        f"{n_leaves} tensors compared, largest difference {worst[1]:.3e} "
+        f"({worst[0] or 'none'}; tol {TOL_GRAPH:g}); outputs "
+        f"{[round(x, 5) for x in go[-1].tolist()[:3]]}")
+    return calls, worst[1]
+
+
+def trace_replay(A, what, calls, tries=4):
+    """A torch.profiler trace of one replay: the resident attention kernels
+    in it (forward; the fused backward or the dq kernel of a dq + dk/dv
+    pair), against the counters a replay adds. Wants 12 + 12 (one
+    microbatch), no other attention body. Retakes a session that lost
+    kernel records. Returns the trace's (forward, backward) counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(tries):
+        calls.restart()
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls.graph()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        fwd = sum("attention_fwd_resident_kernel" in n for n in names)
+        bwd = sum("attention_bwd_fused_kernel" in n
+                  or "attention_bwd_dq_resident_kernel" in n for n in names)
+        other = sorted({n.split("(")[0] for n in names if "attention_" in n
+                        and "resident" not in n and "fused" not in n})
+        seen.append((len(names), fwd, bwd))
+        if (fwd, bwd) == (12, 12):
+            break
+    counters = by_body(A)
+    A.reset_launch_counts()
+    if (fwd, bwd) != (12, 12) or other:
+        raise AssertionError(f"{what}: traces of one replay counted "
+                             f"(kernels, resident forward, backward) {seen}, "
+                             f"other attention kernels {other}; wanted 12 + "
+                             "12 resident")
+    if counters != only("resident", 12, 12):
+        raise AssertionError(f"{what}: the counters after one replay "
+                             f"{counters} disagree with the trace (12 + 12)")
+    log(f"planned {what}: a profiler trace of one replay holds {len(names)} "
+        f"kernels, 12 + 12 of them the resident attention body (the "
+        f"counters after the replay: {counters['attention_fwd']['resident']}"
+        f" + {counters['attention_bwd']['resident']}); sessions {seen}")
+    return fwd, bwd
+
+
+def _graph_lines(text):
+    """(captures, replays, calls) of the engine's `planned step:` lines."""
+    return [tuple(int(x) for x in m) for m in re.findall(
+        r"planned step: (\d+) CUDA graph capture, (\d+) replays of (\d+) "
+        r"calls", text)]
+
+
+def run_planned(A, card, root):
+    """Phase 9: the planned path, DeiT-S at full width and depth, bf16,
+    batch 64 (see the module docstring). Returns the launches counted over
+    the whole phase, replays included."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.cli import finetune, search
+    from ofb_tpu_torch.core.steps import make_planned_search_step
+    from ofb_tpu_torch.models.registry import create_model
+    from ofb_tpu_torch.models.torch_import import params_to_torch_state_dict
+
+    batch = 64
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+
+    def add(counts):
+        for k, n in kernel_counts(counts).items():
+            totals[k] += n
+
+    # 9.1 graph against eager: search, postsearch, the subnet's train step
+    A.reset_launch_counts()
+    bundle, state, _, _, _ = B.build_step("deit_small", batch, seed=8)
+    scfg, tx = B.search_config(batch)
+    worst = []
+    pstep, _ = make_planned_search_step(
+        bundle.space, bundle.cfg, scfg, tx, phase="search",
+        steps_per_epoch=9, device="cuda")
+    calls, d = graph_vs_eager("search step", pstep, state, batch, True)
+    worst.append(d)
+    add(by_body(A))
+    trace_replay(A, "search step", calls)
+    state = calls.box["state"]
+    report, _, _ = B.force_convergence(state, bundle.space)
+    if not report.finish_search:
+        raise AssertionError(f"the forced convergence: {report.events}")
+    pstep, _ = make_planned_search_step(
+        bundle.space, bundle.cfg, scfg, tx, phase="postsearch",
+        steps_per_epoch=9, device="cuda")
+    A.reset_launch_counts()
+    calls, d = graph_vs_eager("postsearch step", pstep, state, batch, True)
+    worst.append(d)
+    _, dcfg, _, fstate, train, _ = B.build_subnet_steps(
+        bundle, calls.box["state"], batch, planned=True)
+    calls, d = graph_vs_eager("train step of the exported subnet", train,
+                              fstate, batch, False)
+    worst.append(d)
+    add(by_body(A))
+    trace_replay(A, "subnet train step", calls)
+    del calls, pstep, train, state, fstate
+    torch.cuda.empty_cache()
+
+    # 9.2 the planned CLIs
+    sdir = os.path.join(root, "planned_search")
+    steps = n_val = 512 // 64
+    argv = ["--data-set", "SYNTHETIC", "--batch-size", "64", "--model",
+            "deit_small_patch16_224_mim", "--synthetic-size", "512",
+            "--accum-iter", "1", "--mixup", "0.8", "--cutmix", "1.0",
+            "--compress-thresh", "1.0", "--cache-device", "--planned-epoch"]
+    _, text, counts, dt = run_cli(A, search, argv + [
+        "--epochs", "4", "--output_dir", sdir])
+    add(counts)
+    slog = _log(os.path.join(sdir, "log.txt"))
+    kinds = ["search" if set(r) == LOG_KEYS_SEARCH else "postsearch"
+             if set(r) == LOG_KEYS_POSTSEARCH else None for r in slog]
+    graphs = _graph_lines(text)
+    if "== finish_search" not in text or "saved model_fused" not in text \
+            or kinds.count("postsearch") < 1 or None in kinds:
+        raise AssertionError(f"the planned search: epochs by phase {kinds}")
+    if len(graphs) != 4 or any(c != 1 or r < 1 for c, r, _ in graphs):
+        raise AssertionError(f"the planned search's graph lines {graphs}")
+    if not all(math.isfinite(v) for r in slog for k, v in r.items()
+               if k.startswith("train_loss")):
+        raise AssertionError(f"the planned search: a loss is not finite")
+    _expect_counts(counts, 12 * (4 * steps + 5 * n_val), 12 * 4 * steps,
+                   "planned search")
+    ep = _epochs(text)
+    log(f"planned cli search ({', '.join(kinds)}; SYNTHETIC 512) on {card}: "
+        f"img/s by epoch {[round(e[1], 1) for e in ep]} (phase 7's classic "
+        f"search, SYNTHETIC 1024 from the host loader: {RATES.get('search')})"
+        f"; split (feed, dispatch, readback, compress) {[e[2:] for e in ep]}"
+        f"; (captures, replays, calls) by epoch {graphs}; launches {counts} "
+        f"in {dt:.1f} s")
+
+    fdir = os.path.join(root, "planned_finetune")
+    ft_steps, ft_val = 2048 // 64, 2048 // 64
+    _, text, counts, dt = run_cli(A, finetune, [
+        "--data-set", "SYNTHETIC", "--batch-size", "64", "--finetune",
+        os.path.join(root, "exported"), "--epochs", "1", "--model-ema",
+        "--cache-device", "--planned-epoch", "--distillation-type", "hard",
+        "--teacher-model", "regnety_160", "--output_dir", fdir])
+    add(counts)
+    flog = _log(os.path.join(fdir, "log.txt"))
+    graphs = _graph_lines(text)
+    if not math.isfinite(flog[-1]["train_loss"]) or len(graphs) != 1 \
+            or graphs[0][:2] != (1, ft_steps - 2):
+        raise AssertionError(f"the planned finetune: {flog}, graph lines "
+                             f"{graphs}")
+    _expect_counts(counts, 12 * (ft_steps + 2 * ft_val), 12 * ft_steps,
+                   "planned finetune")
+    ep = _epochs(text)
+    log(f"planned cli finetune with a RegNetY-160 teacher (hard) on {card}: "
+        f"{ep[0][1]:.2f} img/s sustained (phase 7's classic cached "
+        f"finetune without a teacher: {RATES.get('finetune')}), split "
+        f"{ep[0][2:]}, loss {flog[-1]['train_loss']:.4f}; (captures, "
+        f"replays, calls) {graphs}; launches {counts} in {dt:.1f} s")
+
+    pdir = os.path.join(root, "pretrained")
+    os.makedirs(pdir)
+    deit = create_model("deit_small_patch16_224", device="cuda").init(12)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                          params_to_torch_state_dict(deit).items()}},
+               os.path.join(pdir, "deit_s.pth"))
+    del deit
+    _, text, counts, dt = run_cli(A, search, [
+        "--data-set", "SYNTHETIC", "--batch-size", "64", "--model",
+        "deit_small_patch16_224_mim", "--synthetic-size", "256",
+        "--cache-device", "--planned-epoch", "--epochs", "1",
+        "--pretrained_path", os.path.join(pdir, "deit_s.pth"),
+        "--output_dir", os.path.join(pdir, "run")])
+    add(counts)
+    plog = _log(os.path.join(pdir, "run", "log.txt"))
+    if "loaded pretrained weights" not in text \
+            or not math.isfinite(plog[-1]["train_loss_total"]):
+        raise AssertionError(f"the pretrained search: {plog}")
+    _expect_counts(counts, 12 * (4 + 4), 12 * 4, "pretrained search")
+    log(f"planned cli search from a DeiT-S state dict: "
+        f"{_epochs(text)[0][1]:.2f} img/s, loss "
+        f"{plog[-1]['train_loss_total']:.4f}; launches {counts}")
+    log(f"planned path: largest graph-vs-eager difference "
+        f"{max(worst):.3e}; launches {totals}")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1157,19 +1427,29 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs = check_kernels(A)
-    times = time_kernels(A)
-    subnet_times = time_subnet_shapes(A)
-    stream_times, stream_fields = time_streaming(A)
-    fp32 = check_against_cpu(A)
-    launches = run_slice(A)
-    lifecycle = run_lifecycle(A, smi)
+    seconds = {"build": round(time.perf_counter() - t0, 1)}
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t, 1)
+        return out
+
+    errs = timed("2", check_kernels, A)
+    times = timed("3", time_kernels, A)
+    subnet_times = timed("3 subnet", time_subnet_shapes, A)
+    stream_times, stream_fields = timed("3 streaming", time_streaming, A)
+    fp32 = timed("4", check_against_cpu, A)
+    launches = timed("5", run_slice, A)
+    lifecycle = timed("6", run_lifecycle, A, smi)
     root = tempfile.mkdtemp(prefix="ofb_cli_")
     try:
-        cli = run_clis(A, smi, root)
-        at384 = run_384(A, smi, root)
+        cli = timed("7", run_clis, A, smi, root)
+        at384 = timed("8", run_384, A, smi, root)
+        planned = timed("9", run_planned, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    log(f"seconds by phase: {json.dumps(seconds)}")
 
     kernels = []
     for name, src, line in (
@@ -1182,7 +1462,8 @@ def main():
         phases = dict(launches_fp32=fp32[name],
                       launches_search=launches[name],
                       launches_lifecycle=lifecycle[name],
-                      launches_cli=cli[name], launches_384=at384[name])
+                      launches_cli=cli[name], launches_384=at384[name],
+                      launches_planned=planned[name])
         # the streaming body's times are at 577 tokens; the general body's
         # at 197 (its 577-token times stand beside them)
         timed = stream_fields[name] if name.endswith("_streaming") \

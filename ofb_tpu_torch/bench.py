@@ -20,6 +20,15 @@ exported checkpoint (`cli.export`'s) instead, and skip the search. With
 to the new patch grid as `cli.finetune --input-size S` resizes it (384: 577
 tokens, the streaming attention body's).
 
+With `--planned` the search, postsearch and finetune phases time the
+planned step instead (`core.steps.make_planned_search_step` /
+`make_planned_train_step`): each iteration gathers its batch from a device
+cache of random uint8 staging images (256 -> 224), runs the fused augment
+(RandAugment m9, erasing) and the step, all on the device. It is timed in
+turns eagerly (the step's own function, one launch a kernel from the host)
+and replayed as a CUDA graph (`PlannedStep`), so the two differ only in how
+the work reaches the card; the line reports both.
+
 `--phase augment` times `ops.augment.apply_train_augment` alone instead:
 the train transform of a batch of SYNTHETIC staging images (256 -> 224,
 RandAugment m9 two layers, erasing) with draws from a seed (no MFU).
@@ -36,7 +45,7 @@ dense supernet's (the FLOPs model's total), for the subnet its own.
 
 Usage: python -m ofb_tpu_torch.bench [--model deit_small] [--batch 256]
        [--steps 20] [--phase search|postsearch|finetune|eval|augment]
-       [--subnet DIR] [--input-size S] [--profile N]
+       [--subnet DIR] [--input-size S] [--planned] [--profile N]
 Prints one JSON line; the phases that converge the search also report the
 host time of the converging `compress` pass and of a pass that finds
 nothing to prune. Needs a CUDA device. With --profile N it then traces N
@@ -187,21 +196,23 @@ def build_postsearch_step(bundle, batch: int, *, device="cuda"):
 
 
 def build_subnet_steps(bundle, state, batch: int, *, device="cuda",
-                       subnet=None, input_size=None):
+                       subnet=None, input_size=None, planned=False):
     """Export the converged supernet (or take `subnet`, a (dense params,
     dense cfg) pair) and build the finetune stage on the subnet: (dense
     params, dense cfg, meta (None for `subnet`), train state, train step,
     eval step), with `FinetuneConfig`'s defaults (layer decay 0.95, weight
     decay 0.05, Mixup 0.8 / CutMix 1.0, EMA) and a cosine schedule. With
     `input_size` the subnet takes images of that size, its pos-embed
-    resized to the new patch grid."""
+    resized to the new patch grid. With `planned` the train step is the
+    planned one (`make_planned_train_step`, fused augment) of the same
+    optimizer and settings."""
     import dataclasses
     from .config import FinetuneConfig
     from .core.export import export_subnet
     from .core.lr_decay import build_finetune_optimizer
     from .core.optim import make_schedule
     from .core.steps import (TrainState, make_eval_step_dense,
-                             make_train_step)
+                             make_planned_train_step, make_train_step)
     from .models.pos_embed import interpolate_pos_embed
 
     if subnet is None:
@@ -226,11 +237,12 @@ def build_subnet_steps(bundle, state, batch: int, *, device="cuda",
                         opt_state=tx.init(leaves),
                         ema_params={n: p.detach().clone()
                                     for n, p in leaves.items()})
-    train = make_train_step(dcfg, tx, num_classes=dcfg.num_classes,
-                            mixup_cfg=fcfg.mixup,
-                            smoothing=fcfg.mixup.label_smoothing,
-                            ema_decay=fcfg.model_ema_decay,
-                            compute_dtype=torch.bfloat16, device=device)
+    common = dict(num_classes=dcfg.num_classes, mixup_cfg=fcfg.mixup,
+                  smoothing=fcfg.mixup.label_smoothing,
+                  ema_decay=fcfg.model_ema_decay,
+                  compute_dtype=torch.bfloat16, device=device)
+    train = make_planned_train_step(dcfg, tx, **common) if planned \
+        else make_train_step(dcfg, tx, **common)
     evaluate = make_eval_step_dense(dcfg, compute_dtype=torch.bfloat16,
                                     device=device)
     return dense, dcfg, meta, fstate, train, evaluate
@@ -281,6 +293,58 @@ def time_calls(call, steps: int, warmup: int = 3) -> float:
     if not torch.isfinite(torch.tensor(value)):
         raise RuntimeError(f"non-finite loss {value}")
     return dt / steps
+
+
+class PlannedCalls:
+    """Calls of a planned step over a device cache of random uint8 staging
+    images: `graph()` through the `PlannedStep` (replayed as a CUDA graph
+    after its warm-up), `eager()` through its own function; each returns
+    the loss and keeps the step's output in `out`. `restart()` loads a
+    fresh plan from the state's step counter, so a timing run never walks
+    off the plan's end."""
+
+    def __init__(self, pstep, box, batch: int, rows: int, *, search: bool,
+                 staging: int = 256, images: int = 1024, seed: int = 0):
+        import numpy as np
+        g = torch.Generator(device="cuda").manual_seed(seed + 3)
+        self.cache = torch.randint(0, 256, (images, staging, staging, 3),
+                                   generator=g, device="cuda",
+                                   dtype=torch.uint8)
+        rng = np.random.default_rng(seed)
+        self.labels = rng.integers(0, 1000, (images,))
+        self.batches = rng.integers(0, images, (rows, batch))
+        self.pstep, self.box, self.search = pstep, box, search
+        self.gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+        self.restart()
+
+    def restart(self):
+        self.plan = self.pstep.load_plan(self.batches, self.labels, 0,
+                                         self.box["state"].step)
+
+    def _call(self, fn):
+        idx, lab, base, epoch = self.plan
+        args = (self.box["state"], self.cache, idx, lab, self.gen, base) \
+            + ((epoch,) if self.search else ())
+        self.box["state"], self.out = fn(*args)
+        return self.out.reshape(-1)[1 if self.search else 0]
+
+    def graph(self):
+        return self._call(self.pstep)
+
+    def eager(self):
+        return self._call(self.pstep.fn)
+
+
+def time_planned(calls: PlannedCalls, steps: int, rounds: int = 2):
+    """Seconds a step, eager and graph-replayed in turns (eager, graph,
+    graph, eager, ...): ({"eager": [...], "graph": [...]})."""
+    out = {"eager": [], "graph": []}
+    for r in range(rounds):
+        for kind in (("eager", "graph") if r % 2 == 0 else
+                     ("graph", "eager")):
+            calls.restart()
+            out[kind].append(time_calls(getattr(calls, kind), steps))
+    return out
 
 
 def augment_call(batch: int, staging: int = 256, out_size: int = 224):
@@ -346,9 +410,17 @@ def main():
     ap.add_argument("--input-size", type=int, default=224,
                     help="finetune / eval: the image size; the subnet's "
                          "pos-embed is resized to its patch grid")
+    ap.add_argument("--planned", action="store_true",
+                    help="search / postsearch / finetune: time the planned "
+                         "step over a device cache, eager and as a CUDA "
+                         "graph in turns")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps and print a breakdown")
     args = ap.parse_args()
+    if args.planned and args.phase not in ("search", "postsearch",
+                                           "finetune"):
+        ap.error("--planned is for the search, postsearch and finetune "
+                 "phases")
 
     if args.phase == "feed":
         print(json.dumps({"metric": "host_feed_ms", "batch": args.batch,
@@ -414,7 +486,7 @@ def main():
     elif args.phase in ("finetune", "eval"):
         dense, dcfg, meta, fstate, train, evaluate = build_subnet_steps(
             bundle, state, args.batch, subnet=subnet,
-            input_size=args.input_size)
+            input_size=args.input_size, planned=args.planned)
         box["state"] = fstate
         if images.shape[2] != dcfg.img_size:
             images, labels = random_batch(dcfg, args.batch, "cuda")
@@ -432,7 +504,31 @@ def main():
             def call():
                 return evaluate(dense, images[0], labels[0])["loss_sum"]
 
-    dt = time_calls(call, args.steps)
+    if args.planned:
+        from .core.steps import make_planned_search_step
+        rows = 3 * args.steps + 8
+        if args.phase == "finetune":
+            pstep = train
+        else:
+            scfg, tx = search_config(args.batch)
+            pstep, _ = make_planned_search_step(
+                bundle.space, bundle.cfg, scfg, tx, phase=args.phase,
+                steps_per_epoch=rows, device="cuda")
+        calls = PlannedCalls(pstep, box, args.batch, rows,
+                             search=args.phase != "finetune")
+        times = time_planned(calls, args.steps)
+        dt = min(times["graph"])
+        extra.update(
+            planned=True,
+            ms_per_step_eager=[round(t * 1e3, 3) for t in times["eager"]],
+            ms_per_step_graph=[round(t * 1e3, 3) for t in times["graph"]],
+            img_s_eager=[round(args.batch / t, 2) for t in times["eager"]],
+            captures=pstep.captures,
+            launches_per_replay={f"{w}/{b}": n for (w, b), n in
+                                 pstep.launches_per_replay.items() if n})
+        call = calls.graph
+    else:
+        dt = time_calls(call, args.steps)
     img_s = args.batch / dt
     mfu = img_s * passes * float(gmacs) * 1e9 / H100_BF16_PEAK
     name = {"deit_small": "deit_s", "deit_base": "deit_b",

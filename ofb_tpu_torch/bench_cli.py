@@ -16,13 +16,22 @@ by --workers DataLoader workers):
              and `--phase finetune --subnet <export>` (the same subnet the
              finetune ran) at the same batch, on random float images.
 
+With --cache-device the search gathers its batches from the device cache
+(the transform still fused in the step); with --planned-epoch the search and
+the cached finetune run the planned loop (the epoch's plan on the device,
+each step one CUDA graph replay), there is no host-loader finetune, and the
+step rates are `bench --planned`'s (eager and graph-replayed). Run it with
+--cache-device and with --planned-epoch to compare the two loops on the
+same feed.
+
 Prints one JSON line: each CLI epoch's img/s (the engine's `img_s`: images
 over wall time, the feed, compress passes and readbacks included) and its
 split into feed / dispatch / readback / compress seconds, the compress
 passes' host ms, the step rates, and the card's name and power limit.
 
 Usage: python -m ofb_tpu_torch.bench_cli [--batch 64] [--epochs 2]
-       [--images 2048] [--workers 4] [--out DIR]
+       [--images 2048] [--workers 4] [--cache-device | --planned-epoch]
+       [--out DIR]
 """
 
 from __future__ import annotations
@@ -50,8 +59,12 @@ def main():
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--images", type=int, default=2048)
     ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--cache-device", action="store_true")
+    ap.add_argument("--planned-epoch", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
+    planned = ["--planned-epoch"] if args.planned_epoch else []
+    cached = ["--cache-device"] if args.cache_device or planned else []
 
     import torch
     from .bench import card
@@ -70,9 +83,12 @@ def main():
         "--batch-size", b, "--accum-iter", "1", "--epochs",
         str(args.epochs), "--compress-thresh", "1.0", "--mixup", "0.8",
         "--cutmix", "1.0", "--num_workers", str(args.workers),
-        "--output_dir", sdir])
+        "--output_dir", sdir] + cached + planned)
     result = {"batch": args.batch, "images": args.images,
-              "workers": args.workers, "search_epochs": epoch_lines(text),
+              "workers": args.workers, "cache_device": bool(cached),
+              "planned_epoch": bool(planned),
+              "search_epochs": epoch_lines(text),
+              "graph_lines": re.findall(r"planned step: .*", text),
               "compress_ms": [round(float(x) * 1e3, 3) for x in re.findall(
                   r"compress pass ([\d.]+)s", text)]}
     (_, dcfg), _ = run_main(export, ["--checkpoint",
@@ -80,8 +96,10 @@ def main():
                                      xdir])
     result["subnet"] = {"embed_dim": dcfg.embed_dim,
                         "blocks": [list(x) for x in dcfg.block_overrides]}
-    for name, extra in (("finetune_epochs", []),
-                        ("finetune_cached_epochs", ["--cache-device"])):
+    runs = (("finetune_planned_epochs", ["--cache-device"] + planned),) \
+        if planned else (("finetune_epochs", []),
+                         ("finetune_cached_epochs", ["--cache-device"]))
+    for name, extra in runs:
         _, text = run_main(finetune, [
             "--data-set", "SYNTHETIC", "--batch-size", b, "--finetune",
             xdir, "--epochs", "3", "--model-ema",
@@ -90,9 +108,12 @@ def main():
         result[name] = epoch_lines(text)
     torch.cuda.empty_cache()
     for phase, extra in (("search", ()), ("finetune", ("--subnet", xdir))):
-        r = step_rate(phase, args.batch, *extra)
+        r = step_rate(phase, args.batch, *extra,
+                      *(("--planned",) if planned else ()))
         result[f"{phase}_step_img_s"] = r["value"]
         result[f"{phase}_step_ms"] = r["ms_per_step"]
+        if planned:
+            result[f"{phase}_step_ms_eager"] = r["ms_per_step_eager"]
     result["device"] = card()
     print(json.dumps(result), flush=True)
 

@@ -1,7 +1,7 @@
 """Pieces the port's CLIs share: the tiny test geometry, rebuilding a
 supernet from a search run's recorded args, the per-epoch random source,
-the refusal of flags whose piece is not ported yet, and a CLI run in this
-process with its printed text kept."""
+the refusal of a flag whose piece is not ported yet (--world_size > 1),
+and a CLI run in this process with its printed text kept."""
 
 from __future__ import annotations
 
@@ -63,29 +63,22 @@ def classes_from_args(saved_args: Dict[str, Any]) -> int:
     return 1000
 
 
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The seed of one epoch's augmentation, Mixup and PMIM draws: a
+    function of (seed, epoch) alone, so a resumed run draws what the
+    uninterrupted run would have drawn."""
+    return (seed + 1234) * 100003 + epoch
+
+
 def epoch_generator(device: torch.device, seed: int, epoch: int
                     ) -> torch.Generator:
-    """The random source of one epoch's augmentation, Mixup and PMIM
-    draws, on `device`: a function of (seed, epoch) alone, so a resumed
-    run draws what the uninterrupted run would have drawn."""
-    return torch.Generator(device=device).manual_seed(
-        (seed + 1234) * 100003 + epoch)
+    """A generator on `device` seeded with `epoch_seed` (the classic loops
+    make one each epoch; the planned loops reseed one for the run)."""
+    return torch.Generator(device=device).manual_seed(epoch_seed(seed, epoch))
 
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose piece is not ported."""
-    if getattr(args, "distillation_type", "none") != "none":
-        raise NotImplementedError(
-            "--distillation-type soft|hard needs the teacher "
-            "(models/teacher.py), not ported yet: ROADMAP Queue 1 item 7")
-    if getattr(args, "planned_epoch", False):
-        raise NotImplementedError(
-            "--planned-epoch needs the planned-epoch steps and loops, not "
-            "ported yet: ROADMAP Queue 1 item 6")
-    if getattr(args, "pretrained_path", ""):
-        raise NotImplementedError(
-            "--pretrained_path needs models/torch_import.py, not ported "
-            "yet: ROADMAP Queue 1 item 18")
     if getattr(args, "world_size", 1) > 1:
         raise NotImplementedError(
             "--world_size > 1 needs the multi-GPU slice, not ported yet: "

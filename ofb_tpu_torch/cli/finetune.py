@@ -11,8 +11,10 @@ better of the two in `best`.
   python -m ofb_tpu_torch.cli.finetune --data-set SYNTHETIC --tiny-test \\
       --finetune runs/smoke/exported --epochs 2 --batch-size 8 --device cpu
 
---distillation-type soft|hard and --planned-epoch raise NotImplementedError
-(the teacher and the planned steps are not ported yet).
+--distillation-type soft|hard distils from --teacher-model
+(`models/teacher.py`); --planned-epoch (with --cache-device) runs the
+planned loop: the epoch's plan on the device and, on the card, each step
+one CUDA graph replay.
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ def get_args_parser():
     p.add_argument("--teacher-path", default="", type=str)
     p.add_argument("--distillation-type", default="none",
                    choices=["none", "soft", "hard"],
-                   help="soft|hard raise: the teacher is not ported yet")
+                   help="distil from --teacher-model (models/teacher.py)")
     p.add_argument("--distillation-alpha", default=0.5, type=float)
     p.add_argument("--distillation-tau", default=1.0, type=float)
     p.add_argument("--data-path", default="", type=str)
@@ -106,7 +108,8 @@ def get_args_parser():
                    help="keep the decoded uint8 staging set in device memory")
     p.add_argument("--cache-device-max-gb", default=12.0, type=float)
     p.add_argument("--planned-epoch", action="store_true", default=False,
-                   help="raises: the planned-epoch steps are not ported yet")
+                   help="the epoch's plan on the device, each step one CUDA "
+                        "graph replay (needs --cache-device)")
     p.add_argument("--no-planned-epoch", action="store_false",
                    dest="planned_epoch")
     p.add_argument("--device", default="cuda",
@@ -179,24 +182,29 @@ def load_searched_model(finetune_dir: str, args, nb_classes: int,
 
 
 def main(args):
-    from ..config import DataConfig, MixupConfig, ScheduleConfig
+    from ..config import (DataConfig, DistillationConfig, MixupConfig,
+                          ScheduleConfig)
     from ..core import checkpoint as ckpt
-    from ..core.engine import evaluate, train_one_epoch
+    from ..core.engine import (evaluate, train_one_epoch,
+                               train_one_epoch_planned)
     from ..core.lr_decay import build_finetune_optimizer
     from ..core.optim import (PlateauTracker, make_schedule, set_lr_scale,
                               with_lr_scale)
     from ..core.steps import (TrainState, make_eval_step_dense,
-                              make_train_step)
+                              make_planned_train_step, make_train_step)
     from ..data.datasets import build_dataset
     from ..data.pipeline import (build_device_cache, device_cache_feed,
-                                 device_feed, make_epoch_loader)
+                                 device_feed, epoch_plan, make_epoch_loader)
     from ..device import resolve_device
     from ..models.pos_embed import interpolate_pos_embed
     from ..models.vit import dense_flops
     from ..utils.logging import RunLogger, master_print
-    from .common import epoch_generator, refuse_unported
+    from .common import epoch_generator, epoch_seed, refuse_unported
 
     refuse_unported(args)
+    if args.planned_epoch and not args.cache_device:
+        raise SystemExit("--planned-epoch gathers its batches from the "
+                         "device cache: it needs --cache-device")
     dev = resolve_device(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
@@ -284,11 +292,30 @@ def main(args):
                       cutmix_minmax=tuple(args.cutmix_minmax)
                       if args.cutmix_minmax else None,
                       mode=args.mixup_mode, label_smoothing=args.smoothing)
-    step_fn = make_train_step(cfg, tx, num_classes=nb_classes, mixup_cfg=mix,
-                              smoothing=args.smoothing,
-                              ema_decay=args.model_ema_decay
-                              if args.model_ema else None,
-                              compute_dtype=compute, device=dev)
+    teacher_apply = None
+    distill = DistillationConfig(distillation_type=args.distillation_type,
+                                 alpha=args.distillation_alpha,
+                                 tau=args.distillation_tau)
+    if args.distillation_type != "none":
+        from ..models.teacher import build_teacher
+        teacher_apply = build_teacher(
+            args.teacher_model, teacher_path=args.teacher_path,
+            num_classes=nb_classes, compute_dtype=compute, device=dev)
+    common = dict(num_classes=nb_classes, mixup_cfg=mix,
+                  smoothing=args.smoothing,
+                  ema_decay=args.model_ema_decay if args.model_ema else None,
+                  teacher_apply=teacher_apply, distill=distill,
+                  compute_dtype=compute, device=dev)
+    if args.planned_epoch:
+        step_fn = make_planned_train_step(
+            cfg, tx, accum_iter=args.accum_iter, use_randaug=bool(args.aa),
+            re_prob=args.reprob, crop_scale=(args.min_crop_scale, 1.0),
+            hflip=args.hflip, **common)
+        plan_gen = torch.Generator(device=dev)
+        master_print("planned-epoch loop: the epoch's plan on the device, "
+                     "one step call an iteration")
+    else:
+        step_fn = make_train_step(cfg, tx, **common)
     eval_step = make_eval_step_dense(cfg, compute_dtype=compute, device=dev)
     logger = RunLogger(args.output_dir)
     aug = dict(use_randaug=bool(args.aa), re_prob=args.reprob,
@@ -311,24 +338,39 @@ def main(args):
         return evaluate(eval_step, vfeed, model, header=header)
 
     for epoch in range(start_epoch, args.epochs):
-        gen = epoch_generator(dev, args.seed, epoch)
-        if cache_train is not None:
-            feed = device_cache_feed(
-                *cache_train, generator=gen, epoch=epoch, rank=0, world=1,
+        if args.planned_epoch:
+            # one generator for the run, reseeded each epoch: a captured
+            # step draws from the generator it was captured with
+            plan_gen.manual_seed(epoch_seed(args.seed, epoch))
+            batches = epoch_plan(
+                int(cache_train[0].shape[0]), epoch=epoch, rank=0, world=1,
                 batch_size=batch, repeated_aug=args.repeated_aug, train=True,
-                seed=args.seed, accum_iter=args.accum_iter,
-                out_size=out_size, **aug)
+                seed=args.seed)
+            state, train_stats = train_one_epoch_planned(
+                state, step_fn, cache_train[0], cache_train[1], batches,
+                epoch=epoch, generator=plan_gen)
         else:
-            loader = make_epoch_loader(
-                ds_train, epoch=epoch, rank=0, world=1, batch_size=batch,
-                repeated_aug=args.repeated_aug, train=True, seed=args.seed,
-                num_workers=args.num_workers if not args.tiny_test else 0)
-            feed = device_feed(loader, generator=gen, train=True,
-                               accum_iter=args.accum_iter, out_size=out_size,
-                               device=dev, **aug)
-        state, train_stats = train_one_epoch(
-            state, step_fn, feed, epoch=epoch,
-            steps_per_epoch=steps_per_epoch, generator=gen)
+            gen = epoch_generator(dev, args.seed, epoch)
+            if cache_train is not None:
+                feed = device_cache_feed(
+                    *cache_train, generator=gen, epoch=epoch, rank=0,
+                    world=1, batch_size=batch,
+                    repeated_aug=args.repeated_aug, train=True,
+                    seed=args.seed, accum_iter=args.accum_iter,
+                    out_size=out_size, **aug)
+            else:
+                loader = make_epoch_loader(
+                    ds_train, epoch=epoch, rank=0, world=1, batch_size=batch,
+                    repeated_aug=args.repeated_aug, train=True,
+                    seed=args.seed,
+                    num_workers=args.num_workers if not args.tiny_test
+                    else 0)
+                feed = device_feed(loader, generator=gen, train=True,
+                                   accum_iter=args.accum_iter,
+                                   out_size=out_size, device=dev, **aug)
+            state, train_stats = train_one_epoch(
+                state, step_fn, feed, epoch=epoch,
+                steps_per_epoch=steps_per_epoch, generator=gen)
 
         if args.output_dir:
             ckpt.save_checkpoint(

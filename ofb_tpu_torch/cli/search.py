@@ -12,9 +12,13 @@ saves model_fused.
   python -m ofb_tpu_torch.cli.search --data-set SYNTHETIC --tiny-test \\
       --device cpu --compute-dtype float32 --epochs 2 --batch-size 8
 
---device defaults to cuda and raises without a card. Flags whose piece is
-not ported yet raise NotImplementedError: --distillation-type soft|hard,
---planned-epoch, --pretrained_path, --world_size > 1.
+--device defaults to cuda and raises without a card. --planned-epoch
+(with --cache-device and the fused augment) runs the planned loop: the
+epoch's plan on the device and, on the card, each step one CUDA graph
+replay. --pretrained_path loads a timm DeiT / ViT state dict
+(`models/torch_import.py`); --distillation-type soft|hard adds the teacher
+(`models/teacher.py`). --world_size > 1 raises NotImplementedError (the
+multi-GPU slice is not ported yet).
 """
 
 from __future__ import annotations
@@ -97,7 +101,7 @@ def get_args_parser():
     p.add_argument("--teacher-path", default="", type=str)
     p.add_argument("--distillation-type", default="none",
                    choices=["none", "soft", "hard"],
-                   help="soft|hard raise: the teacher is not ported yet")
+                   help="distil from --teacher-model (models/teacher.py)")
     p.add_argument("--distillation-alpha", default=0.5, type=float)
     p.add_argument("--distillation-tau", default=1.0, type=float)
     p.add_argument("--data-path", default="", type=str)
@@ -120,7 +124,7 @@ def get_args_parser():
     p.add_argument("--max_ratio", default=0.95, type=float)
     p.add_argument("--min_ratio", default=0.75, type=float)
     p.add_argument("--pretrained_path", default="", type=str,
-                   help="raises: models/torch_import.py is not ported yet")
+                   help="a timm DeiT / ViT state dict to start from")
     p.add_argument("--head_search", action="store_true")
     p.add_argument("--channel_search", action="store_true")
     p.add_argument("--attn_search", action="store_true", default=True)
@@ -141,7 +145,8 @@ def get_args_parser():
     p.add_argument("--no-fused-augment", action="store_false",
                    dest="fused_augment")
     p.add_argument("--planned-epoch", action="store_true", default=False,
-                   help="raises: the planned-epoch steps are not ported yet")
+                   help="the epoch's plan on the device, each step one CUDA "
+                        "graph replay (needs --cache-device)")
     p.add_argument("--no-planned-epoch", action="store_false",
                    dest="planned_epoch")
     p.add_argument("--cache-device", action="store_true",
@@ -178,22 +183,29 @@ def main(args):
     from ..config import (DataConfig, DistillationConfig, MixupConfig,
                           OptimFamilyConfig, ScheduleConfig, SearchConfig)
     from ..core import checkpoint as ckpt
-    from ..core.engine import evaluate, search_one_epoch
+    from ..core.engine import (evaluate, search_one_epoch,
+                               search_one_epoch_planned)
     from ..core.optim import (PlateauTracker, build_search_optimizer,
                               make_trainable_mask, named_leaves,
                               set_lr_scale, with_lr_scale)
-    from ..core.steps import TrainState, make_eval_step, make_search_step
+    from ..core.steps import (TrainState, make_eval_step,
+                              make_planned_search_step, make_search_step)
     from ..data.datasets import build_dataset
     from ..data.pipeline import (build_device_cache, device_cache_feed,
-                                 device_feed, make_epoch_loader)
+                                 device_feed, epoch_plan, make_epoch_loader)
     from ..device import resolve_device
     from ..models.mim_vit import fuse_params
     from ..models.registry import create_model
     from ..ops.flops import model_flops, searched_params_count
     from ..utils.logging import RunLogger, master_print
-    from .common import (epoch_generator, refuse_unported, tiny_bundle)
+    from .common import (epoch_generator, epoch_seed, refuse_unported,
+                         tiny_bundle)
 
     refuse_unported(args)
+    if args.planned_epoch and not (args.cache_device and args.fused_augment):
+        raise SystemExit("--planned-epoch gathers its batches from the "
+                         "device cache and augments them in the step: it "
+                         "needs --cache-device and the fused augment")
     dev = resolve_device(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
@@ -287,6 +299,12 @@ def main(args):
             drop_rate=args.drop, drop_path_rate=args.drop_path)
     cfg, space = bundle.cfg, bundle.space
     params, alphas, arch = bundle.init(scfg.seed)
+    if scfg.pretrained_path:
+        from ..models.torch_import import torch_state_dict_to_params
+        sd = torch.load(scfg.pretrained_path, map_location="cpu",
+                        weights_only=True)
+        torch_state_dict_to_params(sd.get("model", sd), cfg, params)
+        master_print(f"loaded pretrained weights from {scfg.pretrained_path}")
 
     batch = scfg.data.batch_size * scfg.accum_iter
     steps_per_epoch = len(make_epoch_loader(
@@ -331,19 +349,35 @@ def main(args):
         w_head=scfg.w_head, w_mlp=scfg.w_mlp, w_patch=scfg.w_patch,
         w_embedding=scfg.w_embedding)
 
-    def build_step(phase):
-        return make_search_step(space, cfg, scfg, tx, phase=phase,
-                                param_mask=pmask, alpha_mask=amask,
-                                compute_dtype=compute,
-                                fused_augment=args.fused_augment,
-                                use_randaug=bool(args.aa),
-                                re_prob=args.reprob,
-                                crop_scale=(args.min_crop_scale, 1.0),
-                                hflip=args.hflip,
-                                fused_model=bool(state.arch.fused),
-                                device=dev)
+    teacher_apply = None
+    if scfg.distillation.distillation_type != "none":
+        from ..models.teacher import build_teacher
+        teacher_apply = build_teacher(
+            scfg.distillation.teacher_model,
+            teacher_path=scfg.distillation.teacher_path,
+            num_classes=nb_classes, compute_dtype=compute, device=dev)
 
-    step_fn = build_step("postsearch" if finish_search else "search")
+    def build_step(phase):
+        common = dict(phase=phase, param_mask=pmask, alpha_mask=amask,
+                      teacher_apply=teacher_apply, compute_dtype=compute,
+                      use_randaug=bool(args.aa), re_prob=args.reprob,
+                      crop_scale=(args.min_crop_scale, 1.0),
+                      hflip=args.hflip, fused_model=bool(state.arch.fused),
+                      device=dev)
+        if args.planned_epoch:
+            return make_planned_search_step(
+                space, cfg, scfg, tx, steps_per_epoch=steps_per_epoch,
+                **common)
+        return make_search_step(space, cfg, scfg, tx,
+                                fused_augment=args.fused_augment,
+                                **common), None
+
+    step_fn, step_keys = build_step("postsearch" if finish_search
+                                    else "search")
+    if args.planned_epoch:
+        master_print("planned-epoch loop: the epoch's plan on the device, "
+                     "one step call an iteration")
+        plan_gen = torch.Generator(device=dev)
     eval_step = make_eval_step(space, cfg, compute_dtype=compute, device=dev)
 
     def make_val_feed():
@@ -370,34 +404,49 @@ def main(args):
     for epoch in range(start_epoch, scfg.epochs):
         if finish_search and first_finish:
             first_finish = False
-            step_fn = build_step("postsearch")
+            step_fn, step_keys = build_step("postsearch")
             max_soft_acc = 0.0
             master_print("== finish_search: PMIM off, decoder frozen, "
                          "mixup/cutmix on, soft-target CE ==")
 
-        gen = epoch_generator(dev, scfg.seed, epoch)
-        if cache_train is not None:
-            feed = device_cache_feed(
-                *cache_train, generator=gen, epoch=epoch, rank=0, world=1,
-                batch_size=batch, repeated_aug=scfg.data.repeated_aug,
-                train=True, seed=scfg.seed, accum_iter=scfg.accum_iter,
-                out_size=out_size, **aug)
-        else:
-            loader = make_epoch_loader(
-                ds_train, epoch=epoch, rank=0, world=1, batch_size=batch,
-                repeated_aug=scfg.data.repeated_aug, train=True,
-                seed=scfg.seed,
-                num_workers=scfg.data.num_workers if not args.tiny_test
-                else 0)
-            feed = device_feed(loader, generator=gen, train=True,
-                               accum_iter=scfg.accum_iter, out_size=out_size,
-                               device=dev, **aug)
-
         was_finished = finish_search
-        state, train_stats, finish_search, pruned = search_one_epoch(
-            state, step_fn, feed, epoch=epoch,
-            steps_per_epoch=steps_per_epoch, scfg=scfg, space=space,
-            generator=gen, finish_search=finish_search)
+        if args.planned_epoch:
+            # one generator for the run, reseeded each epoch: a captured
+            # step draws from the generator it was captured with
+            plan_gen.manual_seed(epoch_seed(scfg.seed, epoch))
+            batches = epoch_plan(
+                int(cache_train[0].shape[0]), epoch=epoch, rank=0, world=1,
+                batch_size=batch, repeated_aug=scfg.data.repeated_aug,
+                train=True, seed=scfg.seed)
+            state, train_stats, finish_search, pruned = \
+                search_one_epoch_planned(
+                    state, step_fn, step_keys, cache_train[0],
+                    cache_train[1], batches, epoch=epoch, scfg=scfg,
+                    space=space, generator=plan_gen,
+                    finish_search=finish_search)
+        else:
+            gen = epoch_generator(dev, scfg.seed, epoch)
+            if cache_train is not None:
+                feed = device_cache_feed(
+                    *cache_train, generator=gen, epoch=epoch, rank=0,
+                    world=1, batch_size=batch,
+                    repeated_aug=scfg.data.repeated_aug, train=True,
+                    seed=scfg.seed, accum_iter=scfg.accum_iter,
+                    out_size=out_size, **aug)
+            else:
+                loader = make_epoch_loader(
+                    ds_train, epoch=epoch, rank=0, world=1, batch_size=batch,
+                    repeated_aug=scfg.data.repeated_aug, train=True,
+                    seed=scfg.seed,
+                    num_workers=scfg.data.num_workers if not args.tiny_test
+                    else 0)
+                feed = device_feed(loader, generator=gen, train=True,
+                                   accum_iter=scfg.accum_iter,
+                                   out_size=out_size, device=dev, **aug)
+            state, train_stats, finish_search, pruned = search_one_epoch(
+                state, step_fn, feed, epoch=epoch,
+                steps_per_epoch=steps_per_epoch, scfg=scfg, space=space,
+                generator=gen, finish_search=finish_search)
         if finish_search and not was_finished:
             first_finish = True
 

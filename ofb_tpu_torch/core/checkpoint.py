@@ -30,7 +30,7 @@ import torch
 
 from ..models.search_space import ArchState
 from ..utils.logging import is_main_process
-from .optim import LrScaleState
+from .optim import LrScaleState, set_count
 
 FORMAT_VERSION = 1
 PARTS = ("params", "alphas", "arch", "opt_state", "ema")
@@ -112,7 +112,7 @@ def _restore(name: str, obj, saved: Dict[str, torch.Tensor], path: str):
             t.copy_(saved[n])
     if name == "opt_state":
         adam = obj.inner if isinstance(obj, LrScaleState) else obj
-        adam.count = int(saved["count"])
+        set_count(adam, int(saved["count"]))
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +178,15 @@ def latest_meta(path: str) -> Optional[Dict[str, Any]]:
         return json.load(f)
 
 
+def is_jax_checkpoint(path: str, meta: Dict[str, Any]) -> bool:
+    """Whether the directory holds the JAX package's parts (flax msgpack
+    or orbax) rather than the port's `<part>.pt`."""
+    return meta.get("backend") == "orbax" or any(
+        os.path.exists(os.path.join(path, n + ".msgpack"))
+        and not os.path.exists(os.path.join(path, n + ".pt"))
+        for n in meta.get("parts", []))
+
+
 def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
                     opt_state=None, ema_params=None) -> Dict[str, Any]:
     """Restore the parts of the checkpoint at `path` into the live objects
@@ -196,10 +205,7 @@ def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
         raise ValueError(f"checkpoint format {ver} is newer than this build "
                          f"understands ({FORMAT_VERSION}): {path}")
     listed = meta.get("parts", [])
-    if meta.get("backend") == "orbax" or any(
-            os.path.exists(os.path.join(path, n + ".msgpack"))
-            and not os.path.exists(os.path.join(path, n + ".pt"))
-            for n in listed):
+    if is_jax_checkpoint(path, meta):
         raise ValueError(f"{path} was written by the JAX package (flax "
                          "msgpack / orbax parts); the port reads only its "
                          "own <part>.pt checkpoints")

@@ -1,10 +1,12 @@
 """Per-epoch loops: search, train, evaluate.
 
-Port of ofb_tpu/core/engine.py (the classic loops; the planned-epoch ones
-wait for the planned steps). The inner loop enqueues steps and, at the
-compress cadence, runs the host-side compress pass. Metrics stay on the
-device until the log window ends and come back in one transfer per window,
-so the host runs ahead of the device between windows.
+Port of ofb_tpu/core/engine.py: the classic loops over a feed, and the
+planned loops over a `core.steps.PlannedStep` (the epoch's index plan on
+the device, one graph replay an iteration on the card). The inner loop
+enqueues steps and, at the compress cadence, runs the host-side compress
+pass. Metrics stay on the device until the log window ends and come back in
+one transfer per window, so the host runs ahead of the device between
+windows.
 
 Each epoch prints its wall time and sustained img/s and splits the time
 into feed (waiting for the next batch: for the decode workers and the
@@ -20,7 +22,7 @@ import math
 import re
 import sys
 import time
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -28,33 +30,48 @@ from ..config import SearchConfig
 from ..models.search_space import SearchSpace
 from ..utils.logging import master_print
 from ..utils.metrics import MetricLogger
-from .compress import compress, update_w_p
+from .compress import compress, sync_w_p, update_w_p
 from .steps import TrainState, keep_ratio_schedule
 
 
 class _Window:
     """Metrics of the steps since the last readback, read back in one
     transfer: the values of every step stacked on the device, then one copy
-    to the host."""
+    to the host. Without `keys` a step hands a {name: tensor} dict; with
+    `keys` a packed fp32 vector in that order, and a value of `halt` that
+    is not finite in any row ends the run (exit code 1)."""
 
-    def __init__(self, logger: MetricLogger, timing: Dict[str, float]):
+    def __init__(self, logger: MetricLogger, timing: Dict[str, float],
+                 keys=None, halt: Optional[str] = None, print_fn=None):
         self.logger = logger
         self.timing = timing
-        self.pending: List[Dict[str, torch.Tensor]] = []
+        self.keys = keys
+        self.halt = halt
+        self.print_fn = print_fn
+        self.pending: List[Any] = []
 
-    def add(self, metrics: Dict[str, torch.Tensor]):
+    def add(self, metrics):
         self.pending.append(metrics)
 
     def flush(self):
         if not self.pending:
             return
         t0 = time.perf_counter()
-        keys = list(self.pending[0])
-        host = torch.stack([torch.stack([m[k].detach().float() for k in keys])
-                            for m in self.pending]).cpu().tolist()
+        if self.keys is None:
+            keys = list(self.pending[0])
+            rows = [torch.stack([m[k].detach().float() for k in keys])
+                    for m in self.pending]
+        else:
+            keys, rows = self.keys, [m.reshape(-1) for m in self.pending]
+        host = torch.stack(rows).cpu().tolist()
         self.timing["readback_s"] += time.perf_counter() - t0
         for row in host:
             self.logger.update(**dict(zip(keys, row)))
+            if self.halt is not None:
+                val = row[keys.index(self.halt)]
+                if not math.isfinite(val):
+                    self.print_fn(f"Loss is {val}, stopping training")
+                    sys.exit(1)
         self.pending.clear()
 
 
@@ -116,6 +133,23 @@ def _new_timing() -> Dict[str, float]:
             "compress_s": 0.0}
 
 
+def _compress(state, scfg, space, timing, print_fn):
+    """One compress pass on the state, in place; returns its report."""
+    print_fn("Start Compression")
+    t_c = time.perf_counter()
+    params, alphas, arch, opt_state, report = compress(
+        state.params, state.alphas, state.arch, state.opt_state, space,
+        scfg.compress_thresh)
+    state.params, state.alphas, state.arch, state.opt_state = \
+        params, alphas, arch, opt_state
+    dt_c = time.perf_counter() - t_c
+    timing["compress_s"] += dt_c
+    for e in report.events:
+        print_fn(f"  {e}")
+    print_fn(f"  compress pass {dt_c:.4f}s ({len(report.events)} events)")
+    return report
+
+
 def search_one_epoch(state: TrainState, step_fn: Callable, feed: Iterable,
                      *, epoch: int, steps_per_epoch: int, scfg: SearchConfig,
                      space: SearchSpace, generator, finish_search: bool,
@@ -156,20 +190,8 @@ def search_one_epoch(state: TrainState, step_fn: Callable, feed: Iterable,
 
         if not finish_search and (it + 1) % compress_every == 0:
             window.flush()
-            print_fn("Start Compression")
-            t_c = time.perf_counter()
-            params, alphas, arch, opt_state, report = compress(
-                state.params, state.alphas, state.arch, state.opt_state,
-                space, scfg.compress_thresh)
-            state.params, state.alphas, state.arch, state.opt_state = \
-                params, alphas, arch, opt_state
-            dt_c = time.perf_counter() - t_c
-            timing["compress_s"] += dt_c
+            report = _compress(state, scfg, space, timing, print_fn)
             execute_pruned |= report.execute_prune
-            for e in report.events:
-                print_fn(f"  {e}")
-            print_fn(f"  compress pass {dt_c:.4f}s "
-                     f"({len(report.events)} events)")
             finish_search = report.finish_search
 
     window.flush()
@@ -202,6 +224,99 @@ def train_one_epoch(state: TrainState, step_fn: Callable, feed: Iterable, *,
     window.flush()
     stats = _close(logger.averages(), timing, t_epoch, n_images, epoch,
                    print_fn)
+    return state, stats
+
+
+def _graph_line(step_fn, print_fn):
+    if step_fn.captures:
+        print_fn(f"planned step: {step_fn.captures} CUDA graph capture, "
+                 f"{step_fn.replays} replays of {step_fn.calls} calls")
+
+
+def search_one_epoch_planned(state: TrainState, step_fn, metric_keys,
+                             cache: torch.Tensor, labels, batches, *,
+                             epoch: int, scfg: SearchConfig,
+                             space: SearchSpace, generator,
+                             finish_search: bool, log_every: int = 10,
+                             print_fn=master_print
+                             ) -> Tuple[TrainState, Dict[str, float], bool,
+                                        bool]:
+    """`search_one_epoch` over a `make_planned_search_step` step: the
+    epoch's index plan `batches` (steps, batch) into the uint8 device
+    `cache` goes to the device once (`step_fn.load_plan`), and each
+    iteration is one call that takes no host input. The compress cadence,
+    the NaN halt (on every step's packed loss) and the log windows are the
+    classic loop's; before a compress pass and at the end of the epoch the
+    host writes the w_p the schedule gives at that point, so the state
+    carries what the next step would apply."""
+    timing = _new_timing()
+    logger = MetricLogger(print_fn=print_fn)
+    window = _Window(logger, timing, keys=list(metric_keys),
+                     halt="loss_total", print_fn=print_fn)
+    execute_pruned = False
+    A = scfg.accum_iter
+    warm = scfg.schedule.warmup_epochs
+    t_epoch = time.perf_counter()
+    idx_plan, labels_plan, base, epoch_dev = step_fn.load_plan(
+        batches, labels, epoch, state.step)
+    steps_per_epoch = int(idx_plan.shape[0])
+    micro = max(steps_per_epoch * A, 1)
+    compress_every = max(steps_per_epoch // scfg.compress_per_epoch, 1)
+
+    for it in range(steps_per_epoch):
+        t0 = time.perf_counter()
+        state, packed = step_fn(state, cache, idx_plan, labels_plan,
+                                generator, base, epoch_dev)
+        timing["dispatch_s"] += time.perf_counter() - t0
+        window.add(packed)
+
+        if it % log_every == 0 or it == steps_per_epoch - 1:
+            window.flush()
+            print_fn(f"Epoch [{epoch}] [{it}/{steps_per_epoch}] {logger}")
+
+        if not finish_search and (it + 1) % compress_every == 0:
+            window.flush()
+            sync_w_p(state.arch, epoch + ((it + 1) * A) / micro, warm)
+            report = _compress(state, scfg, space, timing, print_fn)
+            execute_pruned |= report.execute_prune
+            finish_search = report.finish_search
+
+    window.flush()
+    sync_w_p(state.arch, epoch + 1.0, warm)
+    _graph_line(step_fn, print_fn)
+    stats = _close(logger.averages(), timing, t_epoch, idx_plan.numel(),
+                   epoch, print_fn)
+    return state, stats, finish_search, execute_pruned
+
+
+def train_one_epoch_planned(state: TrainState, step_fn,
+                            cache: torch.Tensor, labels, batches, *,
+                            epoch: int, generator, log_every: int = 10,
+                            print_fn=master_print
+                            ) -> Tuple[TrainState, Dict[str, float]]:
+    """`train_one_epoch` over a `make_planned_train_step` step, the plan on
+    the device as in `search_one_epoch_planned`."""
+    timing = _new_timing()
+    logger = MetricLogger(print_fn=print_fn)
+    window = _Window(logger, timing, keys=["loss"], halt="loss",
+                     print_fn=print_fn)
+    t_epoch = time.perf_counter()
+    idx_plan, labels_plan, base, _ = step_fn.load_plan(
+        batches, labels, epoch, state.step)
+    steps_per_epoch = int(idx_plan.shape[0])
+    for it in range(steps_per_epoch):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, cache, idx_plan, labels_plan,
+                              generator, base)
+        timing["dispatch_s"] += time.perf_counter() - t0
+        window.add(loss)
+        if it % log_every == 0 or it == steps_per_epoch - 1:
+            window.flush()
+            print_fn(f"Epoch [{epoch}] [{it}/{steps_per_epoch}] {logger}")
+    window.flush()
+    _graph_line(step_fn, print_fn)
+    stats = _close(logger.averages(), timing, t_epoch, idx_plan.numel(),
+                   epoch, print_fn)
     return state, stats
 
 

@@ -38,12 +38,18 @@ import torch
 
 from ..config import OptimFamilyConfig, ScheduleConfig
 
-Schedule = Callable[[int], float]
+Schedule = Callable[[Any], torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# Schedules (timm semantics), functions of the micro-iteration count
+# Schedules (timm semantics), functions of the micro-iteration count: an int
+# or a device tensor, evaluated in fp32 like optax's schedules; the result is
+# a 0-d fp32 tensor on the count's device (float() of it on the host)
 # ---------------------------------------------------------------------------
+
+def _f32(count) -> torch.Tensor:
+    return torch.as_tensor(count).to(torch.float32)
+
 
 def _warm(base_lr, sched, warmup_steps, count):
     return sched.warmup_lr + (base_lr - sched.warmup_lr) * (
@@ -57,11 +63,12 @@ def cosine_schedule(base_lr: float, sched: ScheduleConfig, total_steps: int,
     decay_steps = max(total_steps - warmup_steps, 1)
 
     def fn(count):
-        if count < warmup_steps:
-            return _warm(base_lr, sched, warmup_steps, count)
-        t = min(max((count - warmup_steps) / decay_steps, 0.0), 1.0)
-        return sched.min_lr + (base_lr - sched.min_lr) * 0.5 * (
-            1.0 + math.cos(math.pi * t))
+        count = _f32(count)
+        t = ((count - warmup_steps) / decay_steps).clamp(0.0, 1.0)
+        cos = sched.min_lr + (base_lr - sched.min_lr) * 0.5 * (
+            1.0 + torch.cos(math.pi * t))
+        return torch.where(count < warmup_steps,
+                           _warm(base_lr, sched, warmup_steps, count), cos)
 
     return fn
 
@@ -71,8 +78,8 @@ def step_schedule(base_lr: float, sched: ScheduleConfig,
     decay_steps = int(sched.decay_epochs * steps_per_epoch)
 
     def fn(count):
-        return base_lr * sched.decay_rate ** math.floor(
-            count / max(decay_steps, 1))
+        k = torch.floor(_f32(count) / max(decay_steps, 1))
+        return base_lr * torch.pow(sched.decay_rate, k)
 
     return fn
 
@@ -84,11 +91,13 @@ def tanh_schedule(base_lr: float, sched: ScheduleConfig, total_steps: int,
     decay_steps = max(total_steps - warmup_steps, 1)
 
     def fn(count):
-        if count < warmup_steps:
-            return _warm(base_lr, sched, warmup_steps, count)
-        t = min(max((count - warmup_steps) / decay_steps, 0.0), 1.0)
-        return sched.min_lr + (base_lr - sched.min_lr) * 0.5 * (
-            1.0 - math.tanh(lb + (ub - lb) * t))
+        count = _f32(count)
+        t = ((count - warmup_steps) / decay_steps).clamp(0.0, 1.0)
+        tanh_lr = sched.min_lr + (base_lr - sched.min_lr) * 0.5 * (
+            1.0 - torch.tanh(lb + (ub - lb) * t))
+        return torch.where(count < warmup_steps,
+                           _warm(base_lr, sched, warmup_steps, count),
+                           tanh_lr)
 
     return fn
 
@@ -105,9 +114,10 @@ def make_schedule(base_lr: float, sched: ScheduleConfig, total_steps: int,
         warmup_steps = int(sched.warmup_epochs * steps_per_epoch)
 
         def fn(count):
-            if count < warmup_steps:
-                return _warm(base_lr, sched, warmup_steps, count)
-            return base_lr
+            count = _f32(count)
+            return torch.where(count < warmup_steps,
+                               _warm(base_lr, sched, warmup_steps, count),
+                               torch.full_like(count, base_lr))
 
         return fn
     raise ValueError(f"unknown scheduler '{sched.sched}' "
@@ -184,9 +194,18 @@ class Family:
 
 @dataclass
 class AdamWState:
-    count: int                                   # updates done
+    count: Any            # updates done: a 0-d int64 tensor (an int is taken)
     mu: Dict[str, torch.Tensor] = field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+def set_count(adam: AdamWState, value: int) -> None:
+    """Write the update count, in place when it is already a tensor (a
+    captured step reads that tensor)."""
+    if isinstance(adam.count, torch.Tensor):
+        adam.count.fill_(int(value))
+    else:
+        adam.count = int(value)
 
 
 def _clip(g: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
@@ -224,26 +243,37 @@ class SearchOptimizer:
         return {n: self.label_fn(n, t.dim()) for n, t in leaves.items()}
 
     def init(self, leaves: Dict[str, torch.Tensor]) -> AdamWState:
+        dev = next(iter(leaves.values())).device
         return AdamWState(
-            count=0,
+            count=torch.zeros((), dtype=torch.int64, device=dev),
             mu={n: torch.zeros_like(t, dtype=torch.float32)
                 for n, t in leaves.items()},
             nu={n: torch.zeros_like(t, dtype=torch.float32)
                 for n, t in leaves.items()})
 
-    def lr(self, family: str, count: int) -> float:
+    def lr(self, family: str, count) -> torch.Tensor:
         return self.families[family].schedule(count * self.accum_iter)
 
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
                params: Dict[str, torch.Tensor]):
-        """(updates, new state); the moments are advanced in place."""
+        """(updates, state). The moments and the count advance in place, and
+        the count, the learning rates and the bias corrections are device
+        tensors computed in fp32 (as optax does): the update reads no host
+        number that changes from step to step, so a CUDA graph can replay
+        it."""
+        dev = next(iter(params.values())).device
+        if not isinstance(state.count, torch.Tensor):
+            state.count = torch.tensor(int(state.count), dtype=torch.int64,
+                                       device=dev)
         t = state.count
+        tf = t.to(torch.float32) + 1.0
         if self.clip_grad is not None and self.clip_global:
             grads = dict(zip(grads, _clip(list(grads.values()),
                                           self.clip_grad)))
         by_family: Dict[str, List[str]] = {f: [] for f in self.families}
         for n, lab in self.labels(params).items():
             by_family[lab].append(n)
+        lrs: Dict[int, torch.Tensor] = {}       # one value per schedule
         updates: Dict[str, torch.Tensor] = {}
         for fam_name, names in by_family.items():
             if not names:
@@ -258,8 +288,8 @@ class SearchOptimizer:
             torch._foreach_lerp_(mu, g, 1.0 - b1)
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-            c1 = 1.0 - b1 ** (t + 1)
-            c2 = 1.0 - b2 ** (t + 1)
+            c1 = 1.0 - torch.pow(b1, tf)
+            c2 = 1.0 - torch.pow(b2, tf)
             denom = torch._foreach_div(nu, c2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, fam.cfg.eps)
@@ -268,11 +298,16 @@ class SearchOptimizer:
             if fam.weight_decay:
                 torch._foreach_add_(u, [params[n] for n in names],
                                     alpha=fam.weight_decay)
-            torch._foreach_mul_(u, -self.lr(fam_name, t))
+            key = id(fam.schedule)
+            if key not in lrs:
+                lrs[key] = -torch.as_tensor(self.lr(fam_name, t),
+                                            dtype=torch.float32, device=dev)
+            torch._foreach_mul_(u, lrs[key])
             if self.leaf_scale is not None:
                 torch._foreach_mul_(u, [self.leaf_scale[n] for n in names])
             updates.update(zip(names, u))
-        return updates, AdamWState(count=t + 1, mu=state.mu, nu=state.nu)
+        t.add_(1)
+        return updates, state
 
 
 # ---------------------------------------------------------------------------
@@ -300,10 +335,10 @@ class _LrScaled:
                             self.tx.init(leaves))
 
     def update(self, grads, state: LrScaleState, params):
-        updates, inner = self.tx.update(grads, state.inner, params)
+        updates, _ = self.tx.update(grads, state.inner, params)
         names = list(updates)
         scaled = torch._foreach_mul([updates[n] for n in names], state.scale)
-        return dict(zip(names, scaled)), LrScaleState(state.scale, inner)
+        return dict(zip(names, scaled)), state
 
 
 def with_lr_scale(tx: SearchOptimizer) -> _LrScaled:
@@ -313,7 +348,8 @@ def with_lr_scale(tx: SearchOptimizer) -> _LrScaled:
 
 
 def set_lr_scale(opt_state: LrScaleState, scale: float) -> LrScaleState:
-    """Write the PlateauTracker's scale into the state, in place."""
+    """Write the PlateauTracker's scale into the state, in place (a
+    captured step reads the same tensor)."""
     opt_state.scale.fill_(float(scale))
     return opt_state
 

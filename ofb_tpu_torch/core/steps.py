@@ -20,20 +20,30 @@ step; one call is one optimizer update over A accumulated microbatches:
 dense ViT (an exported subnet), `make_eval_step` / `make_eval_step_dense`
 return the sums a caller averages over an epoch.
 
-PyTorch runs eagerly, so the steps update the state's parameters, moments
-and EMA in place (no copy of the model per step) and return the same
-state. Randomness never has to come from the step: `token_masks=` replaces
-the PMIM masks, `mixup_draws=` the Mixup parameters and `augment_draws=`
-the train transform's parameters drawn from `generator`. With
-fused_augment=True a step takes uint8 staging batches and runs the train
-transform (`ops/augment.py`) on the device before the forward. The teacher
-and the planned-epoch steps are not ported yet.
+PyTorch runs eagerly, so the steps update the state's parameters, moments,
+EMA, step counter and the optimizer's update count in place (no copy of the
+model per step) and return the same state. Randomness never has to come
+from the step: `token_masks=` replaces the PMIM masks, `mixup_draws=` the
+Mixup parameters and `augment_draws=` the train transform's parameters
+drawn from `generator`. With fused_augment=True a step takes uint8 staging
+batches and runs the train transform (`ops/augment.py`) on the device
+before the forward. A `teacher_apply(images) -> logits` adds the
+distillation loss of `scfg.distillation` (search) or `distill` (train).
+
+`make_planned_search_step` / `make_planned_train_step` are the steps of the
+planned epoch: the epoch's index plan on the device, everything of an
+iteration (the schedules, the gather from the uint8 cache, the augment, the
+step) computed there from the state's step counter, so no host number
+enters a step. On the card they run as a `PlannedStep`, a CUDA graph
+captured once and replayed every iteration.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,12 +65,20 @@ METRIC_KEYS_POSTSEARCH = ("loss_param", "loss_total", "grad_norm")
 
 @dataclass
 class TrainState:
-    step: int                          # micro-iteration counter
+    step: Any                          # micro-iterations: 0-d int64 tensor
     params: ViT                        # MimViT in the search, ViT in finetune
     alphas: Optional[Alphas]
     arch: Optional[ArchState]
     opt_state: Any
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+    def __post_init__(self):
+        # a device tensor the steps advance in place (an int is taken), so
+        # that a captured step reads and writes the same counter
+        if not isinstance(self.step, torch.Tensor):
+            dev = next(self.params.parameters()).device
+            self.step = torch.tensor(int(self.step), dtype=torch.int64,
+                                     device=dev)
 
 
 def _finished_alpha_names(alphas: Alphas, arch: ArchState):
@@ -76,11 +94,6 @@ def _finished_alpha_names(alphas: Alphas, arch: ArchState):
 
 def _is_decoder(name: str) -> bool:
     return name.startswith("decoder.") or name == "mask_token"
-
-
-def _not_ported(teacher_apply):
-    if teacher_apply is not None:
-        raise NotImplementedError("the teacher is not ported yet")
 
 
 def _augmenter(fused_augment, out_size, use_randaug, re_prob, crop_scale,
@@ -181,14 +194,16 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
     `ops.augment.draw_train_augment`); `augment_draws`, one `AugmentDraws`
     per microbatch, replaces the draws from `generator`. `param_mask` /
     `alpha_mask` are `make_trainable_mask`'s static 0/1 update masks;
-    `fused_model` runs a post-fuse supernet (gates off)."""
+    `fused_model` runs a post-fuse supernet (gates off); `teacher_apply`
+    (images -> fp32 logits, frozen) adds `scfg.distillation`'s loss on the
+    images the student saw."""
     if phase not in ("search", "postsearch"):
         raise ValueError(f"phase {phase!r} (search | postsearch)")
-    _not_ported(teacher_apply)
     dev = resolve_device(device)
     augment = _augmenter(fused_augment, mcfg.img_size, use_randaug, re_prob,
                          crop_scale, hflip)
     use_mim = phase == "search"
+    dcfg = scfg.distillation
     smoothing = scfg.mixup.label_smoothing
     static_mask = {**(param_mask or {}), **(alpha_mask or {})}
 
@@ -212,9 +227,17 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
             base = L.distilled_pair_loss(out.logits, out.logits_dist, labels,
                                          soft_labels=soft,
                                          smoothing=smoothing)
+            kd_logits = out.logits_dist
         else:
             base = L.base_criterion(out.logits, labels, soft_labels=soft,
                                     smoothing=smoothing)
+            kd_logits = out.logits
+        if teacher_apply is not None and dcfg.distillation_type != "none":
+            # the teacher sees the images the student saw (mixed after the
+            # finish)
+            base = L.distillation_loss(
+                base, kd_logits, teacher_apply(images),
+                kind=dcfg.distillation_type, alpha=dcfg.alpha, tau=dcfg.tau)
         metrics = {"loss_param": base}
         total = base
         if phase == "search":
@@ -275,30 +298,236 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
     return step
 
 
-def w_p_schedule(frac_epoch: float, warmup_epochs: float,
-                 w_max: float = 0.99, w_min: float = 0.1) -> float:
+def _anneal(frac_epoch, warmup_epochs: float, start: float, end: float):
+    """start -> end linearly over the warmup, clamped, in fp32. A tensor
+    `frac_epoch` (the planned step's) gives a 0-d tensor on its device with
+    the multiply-add rounded once, as the compiled planned step of the JAX
+    package fuses it; a number gives a float rounded twice, as JAX's host
+    call computes it."""
+    f = torch.as_tensor(frac_epoch).to(torch.float32)
+    t = (f / max(float(warmup_epochs), 1e-8)).clamp_max(1.0)
+    if isinstance(frac_epoch, torch.Tensor):
+        return torch.addcmul(torch.full_like(t, start), t,
+                             torch.full_like(t, end - start))
+    return float(start + (end - start) * t)
+
+
+def w_p_schedule(frac_epoch, warmup_epochs: float, w_max: float = 0.99,
+                 w_min: float = 0.1):
     """Clamped bi-mask anneal value, w_max -> w_min over the warmup, in
-    fp32 arithmetic (what `ArchState.w_p` holds)."""
-    f32 = np.float32
-    t = min(f32(frac_epoch) / f32(max(float(warmup_epochs), 1e-8)), f32(1.0))
-    return float(f32(w_max) + f32(w_min - w_max) * t)
+    fp32 arithmetic (what `ArchState.w_p` holds); see `_anneal`."""
+    return _anneal(frac_epoch, warmup_epochs, w_max, w_min)
 
 
-def keep_ratio_schedule(frac_epoch: float, scfg: SearchConfig,
-                        arch: ArchState, space: SearchSpace):
+@functools.lru_cache(maxsize=8)
+def _patch_ratios(ratios: Tuple[float, ...], device: torch.device):
+    """The patch cells' keep ratios on `device`, copied there once."""
+    return torch.tensor(ratios, dtype=torch.float32, device=device)
+
+
+def keep_ratio_schedule(frac_epoch, scfg: SearchConfig, arch: ArchState,
+                        space: SearchSpace):
     """PMIM keep ratio: the progressive linear anneal max -> min over the
-    warmup (a float), or, non-progressive, the smallest active patch
-    cell's ratio (a 0-d tensor computed from device state, no readback)."""
+    warmup (a float, or a 0-d tensor for a tensor `frac_epoch`), or,
+    non-progressive, the smallest active patch cell's ratio (a 0-d tensor
+    computed from device state, no readback)."""
     if scfg.progressive:
-        f32 = np.float32
-        t = min(f32(frac_epoch) / f32(max(scfg.schedule.warmup_epochs, 1e-8)),
-                f32(1.0))
-        return float(f32(scfg.max_ratio)
-                     + f32(scfg.min_ratio - scfg.max_ratio) * t)
+        return _anneal(frac_epoch, scfg.schedule.warmup_epochs,
+                       scfg.max_ratio, scfg.min_ratio)
     sw = arch.patch.switch
-    ratios = torch.tensor(space.patch.ratios, dtype=torch.float32,
-                          device=sw.device)
-    return torch.where(sw, ratios, 1.0).min()
+    return torch.where(sw, _patch_ratios(tuple(space.patch.ratios),
+                                         sw.device), 1.0).min()
+
+
+# ---------------------------------------------------------------------------
+# Planned steps: the epoch's plan on the device, one graph replay a step
+# ---------------------------------------------------------------------------
+
+def named_tensors(obj, prefix: str = ""):
+    """(dotted name, tensor) of every tensor below `obj`: modules (their
+    parameters and buffers), dicts, sequences and dataclasses (a
+    `TrainState`: step, params, alphas, arch, opt_state, ema_params)."""
+    def sub(key):
+        return f"{prefix}.{key}" if prefix else str(key)
+
+    if isinstance(obj, torch.Tensor):
+        yield prefix, obj
+    elif isinstance(obj, torch.nn.Module):
+        for n, t in obj.named_parameters():
+            yield sub(n), t
+        for n, t in obj.named_buffers():
+            yield sub(n), t
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from named_tensors(v, sub(k))
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from named_tensors(v, sub(i))
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from named_tensors(getattr(obj, f.name), sub(f.name))
+
+
+class PlannedStep:
+    """A planned step and the device buffers of its epoch plan.
+
+    `step(state, cache, idx_plan, labels_plan, generator, epoch_base,
+    epoch?)` runs `fn` on the same arguments. On the CPU it runs eagerly.
+    On the card its first `WARMUP` calls run eagerly (real steps: they
+    build the kernels and the library handles a capture needs); the next
+    call captures `fn` as a CUDA graph, drawing from `generator` (registered
+    with the graph), and that call and every later one replay it. A replay
+    reads and writes the tensors the capture saw, so every call must hand
+    over tensors in the same storage: the state is updated in place
+    (optimizer, counters, `compress`), the plan goes through `load_plan`,
+    and a call whose tensors moved raises. A capture that fails raises too;
+    nothing falls back to the eager step. The attention wrappers' launch
+    counts get the captured launches (`launches_per_replay`, {(wrapper,
+    body): n}) at each replay, since a replay runs no Python. Returns
+    (state, output) with the output cloned, as the next replay rewrites the
+    graph's own."""
+
+    WARMUP = 2
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.calls = 0
+        self.captures = 0
+        self.replays = 0
+        self.launches_per_replay = None
+        self._graph = None
+        self._out = None
+        self._keys = None
+        self._plan = None
+
+    def load_plan(self, batches, labels: np.ndarray, epoch: int,
+                  epoch_base: torch.Tensor):
+        """Copy one epoch's index plan (steps, batch), its labels, the epoch
+        and the step counter at its start into the step's device buffers
+        (made at the first epoch; a later plan must have the same shape).
+        Returns (idx_plan, labels_plan, epoch_base, epoch) to pass on."""
+        idx = np.asarray(batches, np.int64)
+        src = (torch.from_numpy(idx),
+               torch.from_numpy(np.asarray(labels)[idx].astype(np.int64)),
+               epoch_base.detach().to(torch.int64),
+               torch.tensor(int(epoch), dtype=torch.int64))
+        if self._plan is None:
+            self._plan = tuple(torch.empty(t.shape, dtype=torch.int64,
+                                           device=self.device) for t in src)
+        for buf, t in zip(self._plan, src):
+            if buf.shape != t.shape:
+                raise ValueError(f"an epoch plan of shape {tuple(t.shape)} "
+                                 f"after {tuple(buf.shape)}: a planned step "
+                                 "keeps its plan's shape")
+            buf.copy_(t)
+        return self._plan
+
+    def _signature(self, args):
+        return [(id(a) if isinstance(a, torch.Generator) else None)
+                for a in args] + [t.data_ptr() for _, t in named_tensors(args)]
+
+    def __call__(self, *args):
+        if self.device.type != "cuda" or (self._graph is None
+                                          and self.calls < self.WARMUP):
+            self.calls += 1
+            return self.fn(*args)
+        if self._graph is None:
+            self._capture(args)
+        elif self._signature(args) != self._keys:
+            raise RuntimeError("a captured planned step was handed tensors "
+                               "in new storage: the state and the plan must "
+                               "be updated in place")
+        from ..ops.attention import add_launches
+        self._graph.replay()
+        add_launches(self.launches_per_replay)
+        self.calls += 1
+        self.replays += 1
+        return args[0], self._out.clone()
+
+    def _capture(self, args):
+        from ..ops.attention import add_launches, launch_counts
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        default = torch.cuda.default_generators[
+            self.device.index if self.device.index is not None
+            else torch.cuda.current_device()]
+        for a in args:
+            if isinstance(a, torch.Generator) and a is not default:
+                graph.register_generator_state(a)
+        before = launch_counts()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            _, out = self.fn(*args)
+        # the capture recorded the launches; they run at each replay
+        self.launches_per_replay = {k: n - before[k]
+                                    for k, n in launch_counts().items()}
+        add_launches({k: -n for k, n in self.launches_per_replay.items()})
+        self._graph, self._out = graph, out
+        self._keys = self._signature(args)
+        self.captures += 1
+
+
+def _gather(cache, idx_plan, labels_plan, it, A: int):
+    """Row `it` of the plan: the uint8 cache rows and labels, as A
+    microbatches."""
+    row = it.reshape(1)
+    idx = idx_plan.index_select(0, row)[0]
+    lbls = labels_plan.index_select(0, row)[0]
+    imgs = cache.index_select(0, idx)
+    mb = idx.shape[0] // A
+    return imgs.reshape(A, mb, *imgs.shape[1:]), lbls.reshape(A, mb)
+
+
+def make_planned_search_step(space: SearchSpace, mcfg: ModelCfg,
+                             scfg: SearchConfig, tx, *, phase: str,
+                             steps_per_epoch: int,
+                             param_mask: Optional[Dict[str, float]] = None,
+                             alpha_mask: Optional[Dict[str, float]] = None,
+                             teacher_apply=None,
+                             compute_dtype=torch.bfloat16,
+                             use_randaug: bool = True, re_prob: float = 0.25,
+                             crop_scale=(0.08, 1.0), hflip: bool = True,
+                             fused_model: bool = False, device="cuda"):
+    """The search step over the device-resident cache, everything of an
+    iteration on the device. Returns (step, metric keys):
+
+      step(state, cache, idx_plan, labels_plan, generator, epoch_base,
+           epoch) -> (state, packed metrics)
+
+    idx_plan / labels_plan (steps_per_epoch, A * mb) and the 0-d epoch_base
+    (the step counter at the epoch's start) and epoch are device tensors
+    (`PlannedStep.load_plan`). The iteration index comes from the state's
+    step counter; from it the step computes the fraction of the epoch done,
+    writes the w_p anneal into the unfinished modules, takes the PMIM keep
+    ratio, gathers the uint8 cache rows and labels of the iteration, runs
+    the fused augment and the inner step (`make_search_step`, drawing from
+    `generator` in the same order) and packs the metrics into one fp32
+    vector in the keys' order. On the card the step is a `PlannedStep`:
+    replayed as a CUDA graph."""
+    inner = make_search_step(
+        space, mcfg, scfg, tx, phase=phase, param_mask=param_mask,
+        alpha_mask=alpha_mask, teacher_apply=teacher_apply,
+        compute_dtype=compute_dtype, fused_augment=True,
+        use_randaug=use_randaug, re_prob=re_prob, crop_scale=crop_scale,
+        hflip=hflip, fused_model=fused_model, device=device)
+    from .compress import sync_w_p
+    keys = METRIC_KEYS_SEARCH if phase == "search" \
+        else METRIC_KEYS_POSTSEARCH
+    A = scfg.accum_iter
+    micro = max(steps_per_epoch * A, 1)
+    warm = scfg.schedule.warmup_epochs
+
+    def step(state: TrainState, cache, idx_plan, labels_plan, generator,
+             epoch_base, epoch):
+        it = torch.div(state.step - epoch_base, A, rounding_mode="floor")
+        frac = epoch.to(torch.float32) + (it * A).to(torch.float32) / micro
+        sync_w_p(state.arch, frac, warm)
+        keep = keep_ratio_schedule(frac, scfg, state.arch, space)
+        imgs, lbls = _gather(cache, idx_plan, labels_plan, it, A)
+        state, metrics = inner(state, imgs, lbls, generator, keep)
+        return state, torch.stack([metrics[k].float() for k in keys])
+
+    return PlannedStep(step, resolve_device(device)), keys
 
 
 # ---------------------------------------------------------------------------
@@ -321,11 +550,15 @@ def make_train_step(mcfg: ModelCfg, tx, *, num_classes: int, mixup_cfg=None,
     {"loss": ...}); the state holds a dense `ViT` and no alphas. With
     `mixup_cfg` (mixup or cutmix above 0) the labels are soft;
     `mixup_draws` replaces the draws from `generator`. `fused_augment` and
-    `augment_draws` as in `make_search_step`."""
-    _not_ported(teacher_apply)
+    `augment_draws` as in `make_search_step`; with `teacher_apply` and a
+    `distill` config whose type is not "none", the distillation loss (the
+    class head's or a distilled model's second head's logits against the
+    teacher's)."""
     dev = resolve_device(device)
     augment = _augmenter(fused_augment, mcfg.img_size, use_randaug, re_prob,
                          crop_scale, hflip)
+    distill_on = teacher_apply is not None and distill is not None \
+        and distill.distillation_type != "none"
     mix_on = mixup_cfg is not None and (mixup_cfg.mixup > 0
                                         or mixup_cfg.cutmix > 0)
 
@@ -340,10 +573,15 @@ def make_train_step(mcfg: ModelCfg, tx, *, num_classes: int, mixup_cfg=None,
         out = vit_forward(params, images, mcfg, train=True,
                           generator=generator, compute_dtype=compute_dtype)
         # a distilled model's second head is the teacher's: only the class
-        # head enters the base criterion
-        logits = out[0] if isinstance(out, tuple) else out
+        # head enters the base criterion, the other one the distillation
+        logits, kd_logits = out if isinstance(out, tuple) else (out, out)
         base = L.base_criterion(logits, labels, soft_labels=soft,
                                 smoothing=smoothing)
+        if distill_on:
+            base = L.distillation_loss(
+                base, kd_logits, teacher_apply(images),
+                kind=distill.distillation_type, alpha=distill.alpha,
+                tau=distill.tau)
         return base, {"loss": base}
 
     def step(state: TrainState, images, labels, generator=None,
@@ -369,6 +607,43 @@ def make_train_step(mcfg: ModelCfg, tx, *, num_classes: int, mixup_cfg=None,
         return state, metrics
 
     return step
+
+
+def make_planned_train_step(mcfg: ModelCfg, tx, *, num_classes: int,
+                            accum_iter: int = 1, mixup_cfg=None,
+                            smoothing: float = 0.1,
+                            ema_decay: Optional[float] = None,
+                            teacher_apply=None, distill=None,
+                            compute_dtype=torch.bfloat16,
+                            use_randaug: bool = True, re_prob: float = 0.25,
+                            crop_scale=(0.08, 1.0), hflip: bool = True,
+                            device="cuda"):
+    """The finetune step over the device cache, as
+    `make_planned_search_step` does it for the search:
+
+      step(state, cache, idx_plan, labels_plan, generator, epoch_base)
+        -> (state, fp32 loss)
+
+    the iteration's cache rows and labels gathered on the device, then the
+    fused augment and `make_train_step`'s step. On the card a
+    `PlannedStep`, replayed as a CUDA graph."""
+    inner = make_train_step(
+        mcfg, tx, num_classes=num_classes, mixup_cfg=mixup_cfg,
+        smoothing=smoothing, ema_decay=ema_decay,
+        teacher_apply=teacher_apply, distill=distill,
+        compute_dtype=compute_dtype, fused_augment=True,
+        use_randaug=use_randaug, re_prob=re_prob, crop_scale=crop_scale,
+        hflip=hflip, device=device)
+    A = accum_iter
+
+    def step(state: TrainState, cache, idx_plan, labels_plan, generator,
+             epoch_base):
+        it = torch.div(state.step - epoch_base, A, rounding_mode="floor")
+        imgs, lbls = _gather(cache, idx_plan, labels_plan, it, A)
+        state, metrics = inner(state, imgs, lbls, generator)
+        return state, metrics["loss"].float()
+
+    return PlannedStep(step, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

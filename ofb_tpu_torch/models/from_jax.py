@@ -119,6 +119,15 @@ def load_from_jax(module: nn.Module, tree) -> nn.Module:
     return module
 
 
+def regnet_from_jax(tree, cfg, device=None, compute_dtype=torch.bfloat16):
+    """The port's `RegNetY` holding a JAX RegNet params tree
+    (`ofb_tpu.models.regnet`: HWIO kernels, folded-BN `scale` / `bias`,
+    (in, out) SE and head kernels)."""
+    from .regnet import RegNetY
+    return load_from_jax(RegNetY(cfg, device=device,
+                                 compute_dtype=compute_dtype), tree)
+
+
 def to_jax(module: nn.Module) -> Dict[str, Any]:
     """A module's parameters as a nested JAX-layout tree of numpy arrays."""
     root: Dict[str, Any] = {}
@@ -242,6 +251,7 @@ def moments_from_jax(opt_state) -> Dict[str, Any]:
 def load_moments_from_jax(state, opt_state):
     """Copy a JAX optimizer state's moments and update count into the
     port's `AdamWState` (or the `LrScaleState` around one), in place."""
+    from ..core.optim import set_count
     adam = getattr(state, "inner", state)
     got = moments_from_jax(opt_state)
     if set(got["mu"]) != set(adam.mu):
@@ -251,5 +261,5 @@ def load_moments_from_jax(state, opt_state):
         for which in ("mu", "nu"):
             for name, dst in getattr(adam, which).items():
                 dst.copy_(torch.from_numpy(got[which][name]).to(dst.device))
-    adam.count = got["count"]
+    set_count(adam, got["count"])
     return state

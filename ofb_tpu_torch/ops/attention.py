@@ -280,6 +280,22 @@ def reset_launch_counts():
 reset_launch_counts()
 
 
+def launch_counts():
+    """{(wrapper name, body): launches} of both wrappers."""
+    return {(w.__name__, b): n for w in (attention_fwd, attention_bwd)
+            for b, n in w.by_body.items()}
+
+
+def add_launches(counts):
+    """Add {(wrapper name, body): n} to the counts: a CUDA graph's replay
+    runs the launches its capture recorded without calling the wrappers
+    (`core.steps.PlannedStep`)."""
+    wrappers = {w.__name__: w for w in (attention_fwd, attention_bwd)}
+    for (name, body), n in counts.items():
+        wrappers[name].launches += n
+        wrappers[name].by_body[body] += n
+
+
 class _FusedMHA(torch.autograd.Function):
     """Custom gradient of attention with q pre-scaled (the port of
     `_mha_pallas`). Saves the scaled q, k, v, the output and its row

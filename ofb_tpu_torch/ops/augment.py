@@ -36,6 +36,7 @@ Semantics kept from the JAX package, which decide the numbers:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -278,8 +279,8 @@ def equalize(img):
     sub = img[:, ::4, ::4, :].reshape(B, -1, C)
     qs = torch.sort(sub, dim=1).values
     S = qs.shape[1]
-    ranks = torch.clamp((torch.arange(EQ_KNOTS + 1) * (S - 1)) // EQ_KNOTS,
-                        0, S - 1).to(img.device)
+    ranks = torch.clamp((torch.arange(EQ_KNOTS + 1, device=img.device)
+                         * (S - 1)) // EQ_KNOTS, 0, S - 1)
     knots = qs[:, ranks].transpose(1, 2)                   # (B, C, K + 1)
     lo = knots[..., :-1].contiguous()
     hi = knots[..., 1:].contiguous()
@@ -507,11 +508,16 @@ def random_erasing(img_norm, erase, box, noise):
                        noise.to(img_norm.dtype), img_norm)
 
 
+@functools.lru_cache(maxsize=8)
+def _mean_std(device: torch.device):
+    """ImageNet mean and std on `device`, copied there once (a copy from
+    the host cannot run inside a CUDA graph's capture)."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def normalize(img255: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                        device=img255.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                       device=img255.device)
+    mean, std = _mean_std(img255.device)
     return (img255 / 255.0 - mean) / std
 
 

@@ -15,8 +15,10 @@ scripts with the same flags.
   port's checkpoint, by `cli.eval` on the same SYNTHETIC val set, fp32:
   loss rel 1e-4 (the eval resize sums in another order), top-1 within one
   image of 2048;
-* flags of pieces not ported yet raise NotImplementedError, and the default
-  --device cuda raises without a card.
+* --world_size > 1 (the multi-GPU slice, not ported yet) raises
+  NotImplementedError; --distillation-type, --planned-epoch and
+  --pretrained_path each run a --tiny-test epoch; the default --device
+  cuda raises without a card.
 
 The JAX runs start as subprocesses when the module's fixture starts, and
 run while the port's do.
@@ -259,18 +261,75 @@ def test_eval_matches_jax_eval_script(runs):
     assert abs(mine["acc5"] - theirs["acc5"]) <= 100.0 / 2048 + 1e-9
 
 
-@pytest.mark.parametrize("flag", [
-    ["--distillation-type", "soft"], ["--planned-epoch"],
-    ["--pretrained_path", "weights.pth"], ["--world_size", "2"]])
+@pytest.mark.parametrize("flag", [["--world_size", "2"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(search, SEARCH + ["--device", "cpu", "--output_dir",
                                 str(tmp_path)] + flag)
-    if flag[0] != "--pretrained_path":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(finetune, ["--data-set", "SYNTHETIC", "--tiny-test",
-                             "--device", "cpu", "--output_dir",
-                             str(tmp_path)] + flag)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(finetune, ["--data-set", "SYNTHETIC", "--tiny-test",
+                         "--device", "cpu", "--output_dir",
+                         str(tmp_path)] + flag)
+
+
+def _pretrained(path):
+    """A timm-layout state dict of the tiny supernet, from a seed."""
+    from ofb_tpu_torch.cli.common import tiny_bundle
+    from ofb_tpu_torch.models.torch_import import params_to_torch_state_dict
+    params = tiny_bundle(1000, torch.device("cpu")).init(11)[0]
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                          params_to_torch_state_dict(params).items()}}, path)
+    return params
+
+
+@pytest.mark.parametrize("flag", [
+    ["--distillation-type", "soft", "--teacher-model", "regnety_040"],
+    ["--planned-epoch", "--cache-device"],
+    ["--pretrained_path", "weights.pth"]])
+def test_flags_that_raised_now_run(flag, runs, tmp_path):
+    """Each flag that raised before the teacher, the planned steps and the
+    timm import were ported runs a --tiny-test epoch on the CPU."""
+    if flag[0] == "--pretrained_path":
+        flag = [flag[0], str(tmp_path / flag[1])]
+        want = _pretrained(flag[1])
+    state, text = _port(search, SEARCH + [
+        "--device", "cpu", "--epochs", "1", "--output_dir",
+        str(tmp_path / "s")] + flag)
+    lines = ck_epoch_lines(text)
+    assert len(lines) == 1 and lines[0]["img_s"] > 0
+    row = _jsonl(str(tmp_path / "s" / "log.txt"))[-1]
+    assert np.isfinite(row["train_loss_total"])
+    if flag[0] == "--pretrained_path":
+        assert "loaded pretrained weights" in text
+        # the load itself: a run that trains no epoch returns its weights
+        state, _ = _port(search, SEARCH + [
+            "--device", "cpu", "--epochs", "1", "--start_epoch", "1",
+            "--output_dir", str(tmp_path / "p")] + flag)
+        got = dict(state.params.named_parameters())
+        for n, p in want.named_parameters():
+            if "score" not in n and "decoder" not in n:
+                torch.testing.assert_close(got[n], p, rtol=0, atol=0)
+        return
+    if flag[0] == "--planned-epoch":
+        assert "planned-epoch loop" in text
+        with pytest.raises(SystemExit, match="cache-device"):
+            _port(search, SEARCH + ["--device", "cpu", "--epochs", "1",
+                                    "--planned-epoch", "--output_dir",
+                                    str(tmp_path / "x")])
+    state, text = _port(finetune, [
+        "--data-set", "SYNTHETIC", "--tiny-test", "--finetune",
+        os.path.join(runs["root"], "port_exported"), "--epochs", "1",
+        "--batch-size", "256", "--device", "cpu", "--compute-dtype",
+        "float32", "--num_workers", "0", "--output_dir",
+        str(tmp_path / "f")] + flag)
+    assert len(ck_epoch_lines(text)) == 1
+    row = _jsonl(str(tmp_path / "f" / "log.txt"))[-1]
+    assert np.isfinite(row["train_loss"])
+
+
+def ck_epoch_lines(text):
+    from ofb_tpu_torch.core.engine import epoch_lines
+    return epoch_lines(text)
 
 
 @pytest.mark.parametrize("module,argv", [

@@ -362,9 +362,21 @@ def test_finetune_config_matches():
 def test_not_ported_options_raise():
     _, jdcfg, dense, dcfg = subnets("tiny4")
     tx = LD.build_finetune_optimizer(dense, lr_schedule=schedule)
-    with pytest.raises(NotImplementedError):
-        S.make_train_step(dcfg, tx, num_classes=16, device="cpu",
-                          teacher_apply=lambda x: x)
+    # the teacher is ported: a train step with one (hard distillation) runs
+    seen = []
+
+    def teacher(images):
+        seen.append(images.shape)
+        return torch.zeros(images.shape[0], 16)
+
+    state, m = S.make_train_step(
+        dcfg, tx, num_classes=16, device="cpu", teacher_apply=teacher,
+        distill=Cfg.DistillationConfig(distillation_type="hard"),
+        compute_dtype=torch.float32)(
+        S.TrainState(0, dense, None, None,
+                     tx.init(dict(dense.named_parameters()))),
+        torch.rand(1, 2, 32, 32, 3), torch.zeros(1, 2, dtype=torch.long))
+    assert seen == [(2, 32, 32, 3)] and torch.isfinite(m["loss"])
     # fused augmentation is ported: without a generator or draws it raises
     fused = S.make_train_step(dcfg, tx, num_classes=16, device="cpu",
                               fused_augment=True)

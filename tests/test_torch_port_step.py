@@ -247,9 +247,28 @@ def test_options_that_are_not_ported_raise():
     _, pscfg = search_cfgs()
     cfg, space, _, _, _ = port_supernet(TINY, *jax_supernet(TINY)[2:])
     tx, _ = build_tx(O, pscfg)
-    with pytest.raises(NotImplementedError):
-        make_search_step(space, cfg, pscfg, tx, device="cpu",
-                         teacher_apply=lambda x: x)
+    # the teacher is ported: a step with one (and distillation on) runs
+    import dataclasses
+    from ofb_tpu_torch.config import DistillationConfig
+    dcfg = dataclasses.replace(pscfg, distillation=DistillationConfig(
+        distillation_type="hard"))
+    _, _, jp, ja, jarch = jax_supernet(TINY)
+    _, _, params, alphas, arch = port_supernet(TINY, jp, ja, jarch)
+    seen = []
+
+    def teacher(images):
+        seen.append(images.shape)
+        return torch.zeros(images.shape[0], TINY["num_classes"])
+
+    state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
+                       opt_state=tx.init(O.named_leaves(params, alphas)))
+    state, m = make_search_step(space, cfg, dcfg, tx, device="cpu",
+                                teacher_apply=teacher,
+                                compute_dtype=torch.float32)(
+        state, torch.rand(A, MB, 32, 32, 3), torch.zeros(A, MB,
+                                                         dtype=torch.long),
+        torch.Generator().manual_seed(0), KEEP)
+    assert seen == [(MB, 32, 32, 3)] * A and torch.isfinite(m["loss_total"])
     # fused augmentation is ported: without a generator or draws it raises
     fused = make_search_step(space, cfg, pscfg, tx, device="cpu",
                              fused_augment=True)
