@@ -27,7 +27,12 @@ which raises (and so exits non-zero) on failure:
      pixels, and an exported subnet's 2 x 24 head) the general and the
      streaming bodies in turns the same way, beside the twin, SDPA, the
      bytes and the operations bounds; the streaming body must be the
-     faster at DeiT-S;
+     faster at DeiT-S. Then each attention shape of the ViT family
+     (VIT_SHAPES: ViT-H/14, ViT-L/16 at 384, the 8 x 96 vit_small, ViT-B/16
+     and /32) at the batch of phase 10's runs: its body, the twin and SDPA
+     beside the bound; and the general body in fp32, the type it serves,
+     at DeiT-S at 224 and 384 pixels beside the twin, SDPA in fp32 and the
+     fp32 bound (the CUDA cores' 67 TFLOP/s);
   4. reference: the port's DeiT-S forward and backward on the card (fp32,
      kernels) against the same model on the CPU (fp32, plain twins); the
      card's pass is a driven path of its own, counted from 0: 12 + 12
@@ -89,12 +94,27 @@ which raises (and so exits non-zero) on failure:
      state dict written from a seed; each run's launches counted from 0
      (replays included), its captures and replays, and its epoch img/s
      beside phase 7's classic runs.
+ 10. the ViT family and the JAX package's TPU checkpoints: (a) the TPU
+     searches committed in runs/ (two DeiT-S, one DeiT-B), their alphas and
+     arch state read from the msgpack files by the port's reader (their
+     params, listed but not committed, must raise), force-finished from
+     seeded weights and exported (the DeiT-S ones to the subnets their TPU
+     finetunes recorded), each subnet's train and eval steps timed over 4
+     calls after a warm-up at batch 64, bf16, all on the resident body; the
+     dense model of a TPU finetune's meta, one eval batch; (b) in process
+     through the CLIs, SYNTHETIC 1024 at staging 256, bf16: `cli.finetune
+     --from-scratch --cache-device` one epoch and `cli.eval` of its best
+     for ViT-B/16 (batch 64, resident body), ViT-L/16 at 384 and ViT-H/14
+     (batch 32, streaming body); one eval batch of the in21k ViT-B/16
+     (pre-logits), the MIIL ViT-B/16 (no qkv bias) and the 8 x 96
+     vit_small, and their fp32 logits and gradients on the card against
+     the CPU's. No bf16 run launches the general body.
 
-The line before the last is the kernels' JSON (`launches` sums the six
+The line before the last is the kernels' JSON (`launches` sums the seven
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
-`launches_cli`, `launches_384` and `launches_planned` give each); the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}.
+`launches_cli`, `launches_384`, `launches_planned` and `launches_vit` give
+each; the general body's times are fp32's); the last line is {"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import json
@@ -109,6 +129,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_FLOPS = 989e12              # H100 SXM, dense
+FP32_FLOPS = 67e12               # H100 SXM, the CUDA cores' fp32 FMA
 # Tolerances, as max |kernel - twin| / max |twin|, the twin in fp32 on the
 # same inputs. fp32: summation order only. bf16: the outputs are rounded
 # to bf16 (relative step 2^-8) and so are p before p @ v and ds before the
@@ -140,7 +161,22 @@ STREAMING = [(64, 577, 6, 64), (16, 577, 12, 64), (2, 257, 2, 64),
              (2, 577, 2, 24), (2, 577, 2, 40), (2, 577, 2, 56),
              (2, 577, 2, 72), (2, 577, 2, 120), (3, 1, 2, 64),
              (3, 17, 2, 40), (2, 197, 6, 64)]
+# the ViT family's attention shapes at the batches of phase 10's runs, and
+# the body that serves each in bf16: ViT-H/14 at 224 (d 80 in 128-column
+# tiles), ViT-L/16 at 384, the JAX package's vit_small (8 x 96, the resident
+# dq + dk/dv backward), ViT-B/16, ViT-B/32 at 384 and at 224
+VIT_SHAPES = [((32, 257, 16, 80), "streaming"),
+              ((32, 577, 16, 64), "streaming"),
+              ((64, 197, 8, 96), "resident"), ((64, 197, 12, 64), "resident"),
+              ((64, 145, 12, 64), "resident"), ((64, 50, 12, 64), "resident")]
+RESIDENT += [shape for shape, body in VIT_SHAPES if body == "resident"]
+# ... and ViT-H/14 at 384: 27 x 27 patches + 1 = 730 tokens
+STREAMING += [shape for shape, body in VIT_SHAPES if body == "streaming"] + [
+    (2, 730, 16, 80)]
 TIMING = (256, 197, 6, 64)
+# the general body in fp32, the type it serves on the driven paths: DeiT-S
+# at 224 and at 384 pixels
+FP32_TIMING = [(256, 197, 6, 64), (256, 577, 6, 64)]
 # the streaming body against the general one: DeiT-S and DeiT-B at 384
 # pixels (the batches of the search step at 224), an exported subnet's
 # narrowest head
@@ -338,9 +374,10 @@ def uncancelled_scales(q, k, v, do):
 
 
 def check_kernels(A):
-    """Phase 2. Returns the max abs errors of the resident and the general
-    bodies at the search step's shape and type (DeiT-S, bf16), and of the
-    streaming body at DeiT-S at 384 pixels, batch 64."""
+    """Phase 2. Returns the max abs errors of the resident body at the
+    search step's shape and type (DeiT-S, bf16), of the general body at
+    that shape in fp32 (the type it serves) and of the streaming body at
+    DeiT-S at 384 pixels, batch 64."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(shape, torch.bfloat16, "resident") for shape in RESIDENT]
@@ -378,9 +415,10 @@ def check_kernels(A):
                 and max(e[1] for e in bwd) <= tol):
             raise AssertionError(f"the {body} body disagrees with its twin "
                                  f"at {shape} {dtype}")
-        if (shape == DEIT_S and body != "streaming"
-                or shape == STREAMING[0] and body == "streaming") \
-                and dtype == torch.bfloat16:
+        if shape == DEIT_S and body == "resident" \
+                or shape == STREAMING[0] and body == "streaming" \
+                or shape == DEIT_S and body == "general" \
+                and dtype == torch.float32:
             tag = "" if body == "resident" else "_" + body
             main_err["attention_fwd" + tag] = fwd[0]
             main_err["attention_bwd" + tag] = max(e[0] for e in bwd)
@@ -626,6 +664,109 @@ def time_streaming(A):
                     bound_by=row[f"{n}_bound_by"])
         fields["attention_bwd_streaming"]["design_floor_ms"] = \
             row["bwd_design_floor_ms"]
+    return rows, fields
+
+
+def _attention_calls(A, q, k, v, do, body):
+    """{name: call} of one shape: the kernels of `body`, the plain twins
+    and SDPA, forward and backward."""
+    import torch
+    import torch.nn.functional as F
+    o, lse = A.attention_fwd(q, k, v, body=body)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (qt, kt, vt))
+    so = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+    sdo = do.transpose(1, 2)
+    return {
+        "fwd_kernel": lambda: A.attention_fwd(q, k, v, body=body),
+        "bwd_kernel": lambda: A.attention_bwd(q, k, v, o, lse, do, body=body),
+        "fwd_plain": lambda: A.attention_fwd_reference(q, k, v),
+        "bwd_plain": lambda: A.attention_bwd_reference(q, k, v, do),
+        "fwd_sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           scale=1.0),
+        "bwd_sdpa": lambda: torch.autograd.grad(so, (qg, kg, vg), sdo,
+                                                retain_graph=True)}
+
+
+def _bounds(row, B, N, H, d, itemsize, flops_per_s):
+    """The bytes and the operations bounds of the forward (q, k, v read, o
+    written) and the backward (q, k, v, o, do read; dq, dk, dv written)."""
+    elems, sq = B * N * H * d, B * H * N * N * d
+    for n, nbytes, flops in (("fwd", 4 * elems * itemsize, 4 * sq),
+                             ("bwd", 7 * elems * itemsize, 10 * sq)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / flops_per_s * 1e3
+        row.update({f"{n}_bound_ms": max(t_bytes, t_ops),
+                    f"{n}_bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations"})
+
+
+def _time_row(row, calls, what):
+    for key, call in calls.items():
+        row[key + "_ms"] = cuda_time_ms(call, iters=10)
+        row[key + "_device_ms"] = device_time_ms(call, iters=10)
+    log(f"timing {what}, ms (device ms): " + "; ".join(
+        f"{n} " + ", ".join(
+            f"{b} {row[f'{n}_{b}_ms']:.4f} ({row[f'{n}_{b}_device_ms']:.4f})"
+            for b in ("kernel", "plain", "sdpa"))
+        + f", bound {row[n + '_bound_ms']:.4f} ({row[n + '_bound_by']})"
+        for n in ("fwd", "bwd")))
+
+
+def time_vit_family(A):
+    """Phase 3, continued: each attention shape of the ViT family
+    (VIT_SHAPES), bf16, at the batch of phase 10's runs: the body that
+    serves it, the plain twin and SDPA, by CUDA events and as device time,
+    beside the bound (H100 SXM: HBM rate, dense bf16 peak)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    for (B, N, H, d), body in VIT_SHAPES:
+        if A.attention_body(N, d, torch.bfloat16).name != body:
+            raise AssertionError(f"{(B, N, H, d)} is not the {body} body's")
+        q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        row = dict(shape=[B, N, H, d], body=body)
+        _bounds(row, B, N, H, d, 2, BF16_FLOPS)
+        _time_row(row, _attention_calls(A, q, k, v, do, body),
+                  f"{(B, N, H, d)} bf16, {body} body")
+        rows.append(row)
+    return rows
+
+
+def time_general_fp32(A):
+    """Phase 3, continued: the general body in fp32, the type it serves on
+    the driven paths (phase 4, phase 6's fp32 checks), at FP32_TIMING,
+    beside the plain twin, SDPA in fp32 and the fp32 bound (bytes at the
+    HBM rate; operations at the CUDA cores' fp32 peak, since the body runs
+    fp32 on them). Returns the rows and the kernels' JSON fields of the
+    general body (DeiT-S at 224; its 577-token figures under `_577`)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, fields = [], {}
+    for B, N, H, d in FP32_TIMING:
+        q, k, v = make_qkv(B, N, H, d, torch.float32, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        row = dict(shape=[B, N, H, d], body="general", dtype="float32")
+        _bounds(row, B, N, H, d, 4, FP32_FLOPS)
+        _time_row(row, _attention_calls(A, q, k, v, do, "general"),
+                  f"{(B, N, H, d)} fp32, general body")
+        rows.append(row)
+        tag = "" if N == 197 else f"_{N}"
+        for n in ("fwd", "bwd"):
+            f = fields.setdefault(f"attention_{n}_general", {"dtype":
+                                                             "float32"})
+            f.update({
+                "ms" + tag: row[f"{n}_kernel_ms"],
+                "device_ms" + tag: row[f"{n}_kernel_device_ms"],
+                "plain_ms" + tag: row[f"{n}_plain_ms"],
+                "library_ms" + tag: row[f"{n}_sdpa_ms"],
+                "plain_device_ms" + tag: row[f"{n}_plain_device_ms"],
+                "library_device_ms" + tag: row[f"{n}_sdpa_device_ms"],
+                "bound_ms" + tag: row[f"{n}_bound_ms"]})
+            if not tag:
+                f["bound_by"] = row[f"{n}_bound_by"]
     return rows, fields
 
 
@@ -1403,6 +1544,242 @@ def run_planned(A, card, root):
     return totals
 
 
+# the TPU searches committed in runs/ (their params are not committed) and
+# the finetunes of the two DeiT-S ones, whose meta records the subnet
+TPU_RUNS = (("runs/organic_a8", "runs/organic_a8/torganic/ft/best"),
+            ("runs/ladder_organic/t0.45", "runs/ladder_organic/t0.45/ft/best"),
+            ("runs/ladder_organic_b/t0.4964", None))
+# phase 10's timed calls of each TPU subnet's train and eval steps
+SUBNET_CALLS = 4
+# phase 10's CLI runs: SYNTHETIC's train and val sets, each
+VIT_IMAGES = 1024
+# phase 10's CLI runs: (registry name, input size, batch, the body that
+# serves its bf16 attention)
+VIT_CLI = (("vit_base_patch16_224", 224, 64, "resident"),
+           ("vit_large_patch16_384", 384, 32, "streaming"),
+           ("vit_huge_patch14_224", 224, 32, "streaming"))
+# phase 10's single eval batches, and the fp32 card-vs-CPU comparisons
+VIT_EVAL = ("vit_base_patch16_224_in21k", "vit_base_patch16_224_miil",
+            "vit_small_patch16_224")
+
+
+def _add(totals, counts):
+    for k, n in kernel_counts(counts).items():
+        totals[k] = totals.get(k, 0) + n
+
+
+def run_tpu_searches(A, card, totals):
+    """Phase 10 (a): the JAX package's TPU search results, read from their
+    msgpack files with the port's reader (alphas and arch state; asking for
+    the params, listed but not committed, must raise), force-finished from
+    seeded weights, exported, and the subnet's train and eval steps each
+    called once to warm up and SUBNET_CALLS times timed, batch 64, bf16;
+    the two DeiT-S runs must export to the subnets their TPU finetunes
+    recorded. Then the dense model of one of
+    those finetunes' meta, one eval batch."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.core import checkpoint as ckpt
+    from ofb_tpu_torch.core.compress import compress
+    from ofb_tpu_torch.core.export import export_subnet
+    from ofb_tpu_torch.core.steps import make_eval_step_dense
+    from ofb_tpu_torch.models.registry import create_model
+    from ofb_tpu_torch.models.vit import ModelCfg, ViT
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    batch = 64
+    for run, ft in TPU_RUNS:
+        best = os.path.join(here, run, "best")
+        meta = ckpt.latest_meta(best)
+        bundle = create_model(meta["args"]["model"], device="cuda")
+        params, alphas, arch = bundle.init(0)
+        try:
+            ckpt.load_checkpoint(best, params=params)
+        except FileNotFoundError:
+            pass
+        else:
+            raise AssertionError(f"{run}: its params are not committed, yet "
+                                 "reading them did not raise")
+        ckpt.load_checkpoint(best, alphas=alphas, arch=arch)
+        passes = 0
+        while not arch.all_finished and passes < 20:
+            params, alphas, arch, _, _ = compress(params, alphas, arch, None,
+                                                  bundle.space, thresh=1.0)
+            passes += 1
+        dense, dcfg, _ = export_subnet(params, arch, bundle.space, bundle.cfg,
+                                       fuse=True)
+        del params
+        dims = [list(b) for b in dcfg.block_overrides]
+        if ft is not None:
+            want = ckpt.latest_meta(os.path.join(here, ft))["model_cfg"]
+            if (dcfg.embed_dim, dims) != (want["embed_dim"],
+                                          want["block_overrides"]):
+                raise AssertionError(
+                    f"{run} exported D {dcfg.embed_dim}, {dims}; its TPU "
+                    f"finetune recorded D {want['embed_dim']}, "
+                    f"{want['block_overrides']}")
+        _, _, _, fstate, train, evaluate = B.build_subnet_steps(
+            bundle, None, batch, subnet=(dense, dcfg))
+        images, labels = B.random_batch(dcfg, batch, "cuda", seed=13)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        A.reset_launch_counts()
+        rates = {}
+        for kind in ("train", "eval"):
+            # one warm-up call, then SUBNET_CALLS timed back to back
+            for i in range(1 + SUBNET_CALLS):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                if kind == "train":
+                    fstate, m = train(fstate, images, labels, gen)
+                else:
+                    m = evaluate(dense, images[0], labels[0])
+            torch.cuda.synchronize()
+            rates[kind] = round(SUBNET_CALLS * batch
+                                / (time.perf_counter() - t0), 2)
+            m = _finite(m, f"{run} subnet {kind} step")
+            if kind == "train":
+                loss = m["loss"]
+                got_train = by_body(A)
+        counts = by_body(A)
+        _add(totals, counts)
+        calls = 1 + SUBNET_CALLS
+        _expect_counts(got_train, calls * dcfg.depth, calls * dcfg.depth,
+                       f"{run} subnet train steps")
+        _expect_counts(counts, 2 * calls * dcfg.depth, calls * dcfg.depth,
+                       f"{run} subnet train and eval steps")
+        log(f"tpu search {run} ({meta['args']['model']}): {passes} compress "
+            f"passes to finish; exported D {dcfg.embed_dim}, blocks (heads, "
+            f"head dim, mlp) {dims}"
+            + ("" if ft is None else ", equal to its TPU finetune's meta")
+            + f"; on {card}, batch {batch}, bf16, img/s over {SUBNET_CALLS} "
+            f"calls after one warm-up: train {rates['train']} (loss "
+            f"{loss:.4f}), eval {rates['eval']}; launches {counts}")
+        del dense, fstate, train, evaluate
+        torch.cuda.empty_cache()
+
+    cfg = ckpt.model_cfg_from_meta(ckpt.latest_meta(os.path.join(
+        here, TPU_RUNS[0][1]))["model_cfg"], ModelCfg)
+    model = ViT(cfg, generator=torch.Generator().manual_seed(14)).to("cuda")
+    images, labels = B.random_batch(cfg, batch, "cuda", seed=14)
+    A.reset_launch_counts()
+    ev = _finite(make_eval_step_dense(cfg)(model, images[0], labels[0]),
+                 "the TPU finetune's model")
+    counts = by_body(A)
+    _add(totals, counts)
+    _expect_counts(counts, cfg.depth, 0, "the TPU finetune's model")
+    log(f"tpu finetune meta {TPU_RUNS[0][1]}: the dense model of its "
+        f"model_cfg (D {cfg.embed_dim}), one eval batch of {batch}: loss "
+        f"{ev['loss_sum'] / batch:.4f}; launches {counts}")
+
+
+def run_vit_family(A, card, root):
+    """Phase 10: (a) `run_tpu_searches`; (b) the ViT family through the
+    CLIs, in process, bf16, SYNTHETIC VIT_IMAGES at staging 256:
+    `cli.finetune --from-scratch --cache-device` one epoch and `cli.eval` of
+    its best for each of VIT_CLI, then one eval batch of each of VIT_EVAL
+    and its fp32 logits and gradients on the card against the CPU's at 2
+    images. Every bf16 run's attention launches, counted from 0, on the
+    body VIT_SHAPES names, none on the general body. Returns the launches
+    of the bf16 runs and, apart, of the fp32 comparisons (the general
+    body's)."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.cli import eval as eval_cli
+    from ofb_tpu_torch.cli import finetune
+    from ofb_tpu_torch.core.steps import make_eval_step_dense
+    from ofb_tpu_torch.models.registry import create_model
+    from ofb_tpu_torch.models.vit import vit_forward
+
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+    run_tpu_searches(A, card, totals)
+
+    for name, size, batch, body in VIT_CLI:
+        fdir = os.path.join(root, f"finetune_{name}")
+        steps = n_val = VIT_IMAGES // batch  # SYNTHETIC's train and val sets
+        state, text, counts, dt = run_cli(A, finetune, [
+            "--model", name, "--from-scratch", "--data-set", "SYNTHETIC",
+            "--synthetic-size", str(VIT_IMAGES),
+            "--batch-size", str(batch), "--input-size", str(size),
+            "--epochs", "1", "--no-model-ema", "--cache-device",
+            "--output_dir", fdir])
+        _add(totals, counts)
+        cfg = create_model(name, device="cuda").cfg
+        flog = _log(os.path.join(fdir, "log.txt"))
+        if not math.isfinite(flog[-1]["train_loss"]):
+            raise AssertionError(f"finetune of {name}: {flog}")
+        _expect_counts(counts, cfg.depth * (steps + n_val),
+                       cfg.depth * steps, f"finetune of {name}", body)
+        ep = _epochs(text)
+        log(f"cli finetune {name} from scratch (D {cfg.embed_dim}, depth "
+            f"{cfg.depth}, {cfg.num_heads} x {cfg.hd} heads, "
+            f"{cfg.num_patches + cfg.num_tokens} tokens, batch {batch}) on "
+            f"{card}: {ep[0][1]:.2f} img/s sustained (log.txt "
+            f"{flog[-1]['train_img_s']:.2f}), split {ep[0][2:]}, loss "
+            f"{flog[-1]['train_loss']:.4f} in {dt:.1f} s; launches {counts}")
+        del state
+        stats, text, counts, dt = run_cli(A, eval_cli, [
+            "--checkpoint", os.path.join(fdir, "best"), "--data-set",
+            "SYNTHETIC", "--synthetic-size", str(VIT_IMAGES),
+            "--batch-size", str(batch)])
+        _add(totals, counts)
+        if not (0.0 <= stats["acc1"] <= 100.0
+                and math.isfinite(stats["loss"])):
+            raise AssertionError(f"eval of {name}: {stats}")
+        _expect_counts(counts, cfg.depth * n_val, 0, f"eval of {name}", body)
+        log(f"cli eval {name}: {stats} in {dt:.1f} s; launches {counts}")
+        shutil.rmtree(fdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    fp32 = dict.fromkeys(kernel_counts(only("general", 0, 0)), 0)
+    g = torch.Generator().manual_seed(15)
+    for name in VIT_EVAL:
+        bundle = create_model(name, device="cuda")
+        cfg = bundle.cfg
+        model = bundle.init(15)
+        images, labels = B.random_batch(cfg, 64, "cuda", seed=15)
+        A.reset_launch_counts()
+        ev = _finite(make_eval_step_dense(cfg)(model, images[0], labels[0]),
+                     f"{name} eval batch")
+        counts = by_body(A)
+        _add(totals, counts)
+        N = cfg.num_patches + cfg.num_tokens
+        _expect_counts(counts, cfg.depth, 0, f"{name} eval batch",
+                       A.attention_body(N, cfg.hd, torch.bfloat16).name)
+        x = torch.rand((2, cfg.img_size, cfg.img_size, 3), generator=g)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            m = model.to(dev)
+            m.zero_grad(set_to_none=True)
+            A.reset_launch_counts()
+            logits = vit_forward(m, x.to(dev), cfg,
+                                 compute_dtype=torch.float32)
+            (logits * torch.linspace(-1, 1, logits.shape[-1],
+                                     device=dev)).sum().backward()
+            if dev == "cuda":
+                _add(fp32, by_body(A))
+            res[dev] = (logits.detach().cpu(), torch.cat(
+                [p.grad.flatten().cpu() for p in m.parameters()]))
+        (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+        e_logits, e_grads = rel_err(lg, lc)[1], rel_err(gg, gc)[1]
+        log(f"{name} (D {cfg.embed_dim}, {cfg.num_heads} x {cfg.hd}, "
+            f"qkv bias {cfg.qkv_bias}, pre-logits "
+            f"{cfg.representation_size}, {cfg.num_classes} classes): bf16 "
+            f"eval batch of 64 loss {ev['loss_sum'] / 64:.4f}, "
+            f"launches {counts}; fp32 card vs CPU at 2 images: logits rel "
+            f"{e_logits:.3e}, grads rel {e_grads:.3e}")
+        if not (e_logits < 1e-3 and e_grads < 1e-3):
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+        del model, m, res
+        torch.cuda.empty_cache()
+    log(f"vit family: launches of the bf16 runs {totals}; of the fp32 "
+        f"comparisons {fp32}")
+    if any(n for k, n in totals.items() if k.endswith("_general")):
+        raise AssertionError(f"a bf16 run of phase 10 launched the general "
+                             f"body: {totals}")
+    return totals, fp32
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1439,6 +1816,8 @@ def main():
     times = timed("3", time_kernels, A)
     subnet_times = timed("3 subnet", time_subnet_shapes, A)
     stream_times, stream_fields = timed("3 streaming", time_streaming, A)
+    vit_times = timed("3 vit", time_vit_family, A)
+    fp32_times, fp32_fields = timed("3 fp32", time_general_fp32, A)
     fp32 = timed("4", check_against_cpu, A)
     launches = timed("5", run_slice, A)
     lifecycle = timed("6", run_lifecycle, A, smi)
@@ -1447,6 +1826,7 @@ def main():
         cli = timed("7", run_clis, A, smi, root)
         at384 = timed("8", run_384, A, smi, root)
         planned = timed("9", run_planned, A, smi, root)
+        vit, vit_fp32 = timed("10", run_vit_family, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"seconds by phase: {json.dumps(seconds)}")
@@ -1459,18 +1839,17 @@ def main():
             ("attention_bwd_general", "attention_bwd.cu", 81),
             ("attention_fwd_streaming", "attention_fwd_streaming.cu", 115),
             ("attention_bwd_streaming", "attention_bwd_streaming.cu", 127)):
-        phases = dict(launches_fp32=fp32[name],
+        phases = dict(launches_fp32=fp32[name] + vit_fp32.get(name, 0),
                       launches_search=launches[name],
                       launches_lifecycle=lifecycle[name],
                       launches_cli=cli[name], launches_384=at384[name],
-                      launches_planned=planned[name])
+                      launches_planned=planned[name],
+                      launches_vit=vit[name])
         # the streaming body's times are at 577 tokens; the general body's
-        # at 197 (its 577-token times stand beside them)
+        # in fp32 at 197 tokens (its 577-token times stand beside them)
         timed = stream_fields[name] if name.endswith("_streaming") \
+            else fp32_fields[name] if name.endswith("_general") \
             else dict(times[name])
-        if name.endswith("_general"):
-            timed.update({k + "_577": v for k, v in
-                          stream_fields[name].items() if k != "bound_by"})
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
             replaces=f"{ATTN_SRC}:{line}", launches=sum(phases.values()),
@@ -1480,6 +1859,8 @@ def main():
         raise AssertionError(f"kernels no driven path launched: {idle}")
     log(json.dumps({"subnet_attention": subnet_times}))
     log(json.dumps({"attention_577": stream_times}))
+    log(json.dumps({"attention_vit": vit_times}))
+    log(json.dumps({"attention_fp32": fp32_times}))
     log("device time: profiler sessions taken as whole {whole}, taken as "
         "agreeing {agreed}, dropped {dropped}; times from queued_time_ms "
         "{queued}".format(**SESSIONS))

@@ -3,7 +3,8 @@ validation set (the flags of scripts/eval.py).
 
 An exported checkpoint (`exported: True`, its `model_cfg` in the meta)
 runs the dense eval step, its EMA weights with --use-ema; a searched
-supernet checkpoint runs the gated eval step (soft accuracy).
+supernet checkpoint runs the gated eval step (soft accuracy). Either may
+be the port's or the JAX package's; a Swin checkpoint raises.
 
   python -m ofb_tpu_torch.cli.eval --checkpoint runs/exp/best \\
       --data-set IMNET --data-path /data/imagenet [--device cpu]
@@ -23,6 +24,8 @@ def get_args_parser():
     ap.add_argument("--data-path", default="")
     ap.add_argument("--data-set", default="IMNET")
     ap.add_argument("--batch-size", type=int, default=128)
+    ap.add_argument("--synthetic-size", type=int, default=2048,
+                    help="samples when --data-set SYNTHETIC")
     ap.add_argument("--input-size", type=int, default=224)
     ap.add_argument("--num-classes", type=int, default=1000)
     ap.add_argument("--use-ema", action="store_true")
@@ -53,7 +56,7 @@ def main(args):
         raise SystemExit(f"no checkpoint at {args.checkpoint}")
     if meta.get("family") == "swin":
         raise NotImplementedError("Swin checkpoints need the Swin family, "
-                                  "not ported yet: ROADMAP slice 6")
+                                  "not ported yet: ROADMAP Queue 1 item 16")
 
     # the restored model's img_size sets the eval input size
     input_size = args.input_size
@@ -64,13 +67,17 @@ def main(args):
         input_size = meta["model_cfg"].get("img_size", input_size)
 
     dcfg = DataConfig(data_path=args.data_path, data_set=args.data_set,
-                      input_size=input_size, batch_size=args.batch_size)
+                      input_size=input_size, batch_size=args.batch_size,
+                      synthetic_size=args.synthetic_size)
     ds_val, nb_classes = build_dataset(False, dcfg, staging=256)
 
     if meta.get("exported"):
         cfg = ckpt.model_cfg_from_meta(meta["model_cfg"], ModelCfg)
-        params = ViT(cfg).to(dev)
-        ema = ViT(cfg).to(dev)
+        # the weights come from the checkpoint: built on the device,
+        # unseeded
+        params = ViT(cfg, device=dev)
+        ema = ViT(cfg, device=dev) if "ema" in meta.get("parts", []) \
+            else None
         restored = ckpt.load_checkpoint(args.checkpoint, params=params,
                                         ema_params=ema)
         use = "ema" if args.use_ema and "ema" in restored else "params"

@@ -1,7 +1,8 @@
 """Export CLI of the port: a searched supernet checkpoint -> a compact dense
 checkpoint (the flags of scripts/export.py).
 
-Restores the supernet the search run recorded, force-finishes an
+Restores the supernet the search run recorded (a checkpoint of the port's
+or of the JAX package's), force-finishes an
 unconverged search with compress(thresh=1.0) (up to 20 passes), slices the
 subnet out (`core/export.py:export_subnet`) and saves it with `exported:
 True` and its `model_cfg` in the meta.

@@ -3,7 +3,8 @@ accuracy (the flags of scripts/finetune.py).
 
 Loads the subnet (`load_searched_model`: an exported checkpoint, a
 searched supernet checkpoint to export on the fly, or --from-scratch the
-registry model), resizes the pos-embed to the input size, builds the
+registry model; a checkpoint of the port's or of the JAX package's, whose
+msgpack parts `core/checkpoint.py` reads), resizes the pos-embed to the input size, builds the
 layer-decay AdamW and runs `train_one_epoch` with Mixup / CutMix and EMA;
 after each epoch it evaluates the raw and the EMA weights and keeps the
 better of the two in `best`.
@@ -89,6 +90,8 @@ def get_args_parser():
     p.add_argument("--data-set", default="IMNET",
                    choices=["CIFAR10", "CIFAR100", "IMNET", "IMNET100",
                             "INAT", "INAT19", "SYNTHETIC", "DIGITS"])
+    p.add_argument("--synthetic-size", type=int, default=2048,
+                   help="samples per epoch when --data-set SYNTHETIC")
     p.add_argument("--output_dir", default="runs/finetune")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--start_epoch", default=0, type=int)
@@ -129,8 +132,8 @@ def load_searched_model(finetune_dir: str, args, nb_classes: int,
                         device="cuda"):
     """(dense ViT on `device`, its ModelCfg): an exported checkpoint as it
     is, a searched supernet checkpoint force-finished and exported, or with
-    an empty `finetune_dir` the registry model (or the tiny geometry) from a
-    fresh init seeded by args.seed."""
+    an empty `finetune_dir` the registry model (or the tiny geometry) drawn
+    on `device` from args.seed."""
     from ..core import checkpoint as ckpt
     from ..core.compress import compress
     from ..core.export import export_subnet
@@ -150,15 +153,17 @@ def load_searched_model(finetune_dir: str, args, nb_classes: int,
         print(banner, flush=True)
         cfg = tiny_cfg(nb_classes) if args.tiny_test else create_model(
             args.model, device=dev, num_classes=nb_classes).cfg
-        g = torch.Generator().manual_seed(args.seed)
-        return ViT(cfg, generator=g).to(dev), cfg
+        # drawn on the device from args.seed (a ViT-H drawn on the host
+        # takes seconds)
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        return ViT(cfg, generator=g, device=dev), cfg
 
     meta = ckpt.latest_meta(finetune_dir)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint at {finetune_dir}")
     if meta.get("exported"):
         cfg = ckpt.model_cfg_from_meta(meta["model_cfg"], ModelCfg)
-        params = ViT(cfg).to(dev)
+        params = ViT(cfg, device=dev)
         ckpt.load_checkpoint(finetune_dir, params=params)
         return params, cfg
 
@@ -212,7 +217,8 @@ def main(args):
                       input_size=args.input_size,
                       num_workers=args.num_workers,
                       repeated_aug=args.repeated_aug,
-                      batch_size=args.batch_size)
+                      batch_size=args.batch_size,
+                      synthetic_size=args.synthetic_size)
     staging = 256 if not args.tiny_test else 40
     out_size = args.input_size if not args.tiny_test else 32
     ds_train, nb_classes = build_dataset(True, dcfg, staging)

@@ -17,8 +17,10 @@ saves model_fused.
 epoch's plan on the device and, on the card, each step one CUDA graph
 replay. --pretrained_path loads a timm DeiT / ViT state dict
 (`models/torch_import.py`); --distillation-type soft|hard adds the teacher
-(`models/teacher.py`). --world_size > 1 raises NotImplementedError (the
-multi-GPU slice is not ported yet).
+(`models/teacher.py`). --resume --checkpoint takes a running checkpoint
+of the port's or of the JAX package's (params, alphas, arch state, Adam
+moments, EMA and the epoch). --world_size > 1 raises NotImplementedError
+(the multi-GPU slice is not ported yet).
 """
 
 from __future__ import annotations

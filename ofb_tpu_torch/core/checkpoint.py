@@ -10,8 +10,15 @@ file per part plus `meta.json`:
                  written last, so a readable meta implies readable parts
 
 Every file is written to a temporary name and moved into place with
-`os.replace`. The JAX package writes flax msgpack parts instead; the two
-formats do not cross, and `load_checkpoint` raises on a JAX directory.
+`os.replace`.
+
+The JAX package writes `<part>.msgpack` (flax's msgpack) with the same
+meta.json. `load_checkpoint` reads such a directory too: `core/msgpack.py`
+decodes the parts and `models/from_jax.py` carries them into the port's
+layouts. Two rules differ from the JAX package's
+loader: a part the caller asks for that meta.json lists but whose file is
+missing raises (JAX skips it), and the orbax backend is not read. The JAX
+package never reads the port's format.
 
 The steps update parameters, moments and EMA in place, so `save_checkpoint`
 takes its snapshot (a copy to the host) before it returns, even with
@@ -30,6 +37,7 @@ import torch
 
 from ..models.search_space import ArchState
 from ..utils.logging import is_main_process
+from .msgpack import read_tree
 from .optim import LrScaleState, set_count
 
 FORMAT_VERSION = 1
@@ -187,16 +195,9 @@ def is_jax_checkpoint(path: str, meta: Dict[str, Any]) -> bool:
         for n in meta.get("parts", []))
 
 
-def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
-                    opt_state=None, ema_params=None) -> Dict[str, Any]:
-    """Restore the parts of the checkpoint at `path` into the live objects
-    handed in (modules, ArchState, optimizer state, EMA dict), in place.
-    Returns {"meta": meta, <part>: the object restored into, ...}; a part
-    the checkpoint lacks, or no object was handed for, is left out.
-
-    Raises FileNotFoundError without a meta.json (a directory whose writer
-    never finished) or with a listed part missing, and ValueError on a
-    checkpoint in the JAX package's format."""
+def _read_meta(path: str) -> Dict[str, Any]:
+    """meta.json of a checkpoint; raises without one (a writer that never
+    finished) or when its format is newer than this build's."""
     meta = latest_meta(path)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint at {path} (no meta.json)")
@@ -204,33 +205,102 @@ def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
     if ver > FORMAT_VERSION:
         raise ValueError(f"checkpoint format {ver} is newer than this build "
                          f"understands ({FORMAT_VERSION}): {path}")
-    listed = meta.get("parts", [])
-    if is_jax_checkpoint(path, meta):
-        raise ValueError(f"{path} was written by the JAX package (flax "
-                         "msgpack / orbax parts); the port reads only its "
-                         "own <part>.pt checkpoints")
+    return meta
+
+
+def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
+                    opt_state=None, ema_params=None) -> Dict[str, Any]:
+    """Restore the parts of the checkpoint at `path` into the live objects
+    handed in (modules, ArchState, optimizer state, EMA dict), in place.
+    Returns {"meta": meta, <part>: the object restored into, ...}; a part
+    the checkpoint lacks, or no object was handed for, is left out. A
+    directory the JAX package wrote is read with `core/msgpack.py` and
+    carried over by `_restore_jax`; its orbax backend raises
+    NotImplementedError.
+
+    Raises FileNotFoundError without a meta.json (a directory whose writer
+    never finished) or with a listed part missing that was asked for."""
+    meta = _read_meta(path)
+    jax = is_jax_checkpoint(path, meta)
+    if jax:
+        _refuse_orbax(path, meta)
     objs = dict(zip(PARTS, (params, alphas, arch, opt_state, ema_params)))
     out: Dict[str, Any] = {"meta": meta}
-    for name in listed:
+    for name in meta.get("parts", []):
         obj = objs.get(name)
         if obj is None:
             continue
-        fpath = os.path.join(path, name + ".pt")
+        fpath = os.path.join(path, name + (".msgpack" if jax else ".pt"))
         if not os.path.exists(fpath):
             raise FileNotFoundError(f"part {name!r} listed in "
                                     f"{path}/meta.json but {fpath} is "
                                     "missing")
-        saved = torch.load(fpath, map_location="cpu", weights_only=True)
-        _restore(name, obj, saved, path)
+        if jax:
+            _restore_jax(name, obj, read_tree(fpath), path)
+        else:
+            saved = torch.load(fpath, map_location="cpu", weights_only=True)
+            _restore(name, obj, saved, path)
         out[name] = obj
     return out
 
 
+# ---------------------------------------------------------------------------
+# The JAX package's checkpoints
+# ---------------------------------------------------------------------------
+
+def _refuse_orbax(path: str, meta: Dict[str, Any]) -> None:
+    if meta.get("backend") == "orbax":
+        raise NotImplementedError(
+            f"{path} was written by the JAX package's orbax backend, which "
+            "the port does not read (ROADMAP Queue 1 item 17); save it with "
+            "the default msgpack backend")
+
+
+def load_checkpoint_raw(path: str) -> Dict[str, Any]:
+    """The JAX package's `load_checkpoint_raw`: {"meta": meta, <part>: the
+    part's tree of dicts, lists and arrays} for every part meta.json lists
+    whose `<part>.msgpack` exists, shapes from the files."""
+    meta = _read_meta(path)
+    _refuse_orbax(path, meta)
+    out: Dict[str, Any] = {"meta": meta}
+    for name in meta.get("parts", []):
+        fpath = os.path.join(path, name + ".msgpack")
+        if os.path.exists(fpath):
+            out[name] = read_tree(fpath)
+    return out
+
+
+def _restore_jax(name: str, obj, tree, path: str) -> None:
+    """Copy one part of a JAX checkpoint (its decoded tree) into the live
+    object, in place: a module through `load_from_jax`, an EMA dict by
+    name, the ArchState's tensors through `arch_from_jax`, the moments,
+    count and plateau scale through `load_moments_from_jax`."""
+    from ..models.from_jax import (arch_from_jax, flatten_from_jax,
+                                   load_from_jax, load_moments_from_jax)
+    if name == "arch":
+        _restore(name, obj, _arch_tensors(arch_from_jax(tree)), path)
+    elif name == "opt_state":
+        load_moments_from_jax(obj, tree)
+    elif isinstance(obj, torch.nn.Module):
+        load_from_jax(obj, tree)
+    else:                                   # an EMA {name: tensor} dict
+        _restore(name, obj, {n: torch.from_numpy(a) for n, a in
+                             flatten_from_jax(tree).items()}, path)
+
+
+# fields of the JAX package's configs that change no result, only how XLA
+# spends memory: `remat` rematerialises each block in the backward
+IGNORED_CFG_FIELDS = ("remat",)
+
+
 def model_cfg_from_meta(cfg_dict: Dict[str, Any], cfg_cls):
     """Rebuild a frozen, tuple-field config dataclass from the JSON round
-    trip of dataclasses.asdict: lists become tuples, nested ones too."""
+    trip of dataclasses.asdict: lists become tuples, nested ones too. A
+    JAX package's config is taken as it stands, its `remat` ignored."""
     def conv(v):
         if isinstance(v, list):
             return tuple(conv(x) for x in v)
         return v
-    return cfg_cls(**{k: conv(v) for k, v in cfg_dict.items()})
+    known = {f.name for f in dataclasses.fields(cfg_cls)}
+    return cfg_cls(**{k: conv(v) for k, v in cfg_dict.items()
+                      if k in known or k not in IGNORED_CFG_FIELDS})

@@ -5,13 +5,15 @@ Port of ofb_tpu/data/native.py. The library is built at first use with
 carries a hash of the source and flags); `native/` is only read. Without a
 toolchain or libjpeg the functions return None and the datasets decode
 with PIL instead. API: stage JPEG bytes to fixed-size uint8 HWC staging
-images, one at a time or a threaded batch.
+images, one at a time or a threaded batch; `NativeFolderDataset`, an
+ImageFolder whose images the library stages.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import io
 import os
 import subprocess
 import threading
@@ -123,3 +125,27 @@ def resize_rgb(img: np.ndarray, dw: int, dh: int) -> Optional[np.ndarray]:
     lib.ofb_resize_rgb(img.ctypes.data_as(ctypes.c_void_p), sw, sh,
                        out.ctypes.data_as(ctypes.c_void_p), dw, dh)
     return out
+
+
+class NativeFolderDataset:
+    """ImageFolder over image files staged by the native library; an image
+    it cannot decode (not a JPEG, or no library) goes through PIL."""
+
+    def __init__(self, root: str, staging: int):
+        from .datasets import scan_image_folder
+        self.samples, _ = scan_image_folder(root)
+        self.staging = staging
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        path, target = self.samples[i]
+        with open(path, "rb") as f:
+            data = f.read()
+        arr = stage_jpeg(data, self.staging)
+        if arr is None:
+            from PIL import Image
+            from .datasets import resize_u8
+            arr = resize_u8(Image.open(io.BytesIO(data)), self.staging)
+        return arr, target

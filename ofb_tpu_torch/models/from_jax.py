@@ -1,7 +1,9 @@
 """Carry weights and state between the JAX package and the port.
 
 Inputs and outputs are plain numpy: a JAX parameter tree, alphas tree or
-`ArchState` whose leaves were pulled to the host (`np.asarray`). Layout
+`ArchState` whose leaves were pulled to the host (`np.asarray`), or the
+same trees as the JAX package's checkpoint files hold them (nested dicts
+and lists, `core/msgpack.py`; a bfloat16 leaf is a torch tensor). Layout
 rules (the JAX package's own torch import rules):
 
     Linear kernel (in, out)          <-> weight (out, in)       transpose
@@ -86,6 +88,12 @@ def to_torch_layout(path, a: np.ndarray) -> np.ndarray:
     return a
 
 
+def _f32(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().float().cpu().numpy()
+    return np.asarray(leaf, dtype=np.float32)
+
+
 def flatten_from_jax(tree) -> Dict[str, np.ndarray]:
     """{module name: array in the port's layout} for a JAX params-shaped
     tree. Leaves that are not arrays (optax's masked-out nodes) are
@@ -94,9 +102,8 @@ def flatten_from_jax(tree) -> Dict[str, np.ndarray]:
     for path, leaf in _walk(tree):
         if not hasattr(leaf, "shape"):
             continue
-        out[torch_name(path)] = np.array(
-            to_torch_layout(path, np.asarray(leaf, dtype=np.float32)),
-            order="C")
+        out[torch_name(path)] = np.array(to_torch_layout(path, _f32(leaf)),
+                                         order="C")
     return out
 
 
@@ -162,26 +169,39 @@ def _lists(node):
 # ArchState
 # ---------------------------------------------------------------------------
 
+def _get(node, name):
+    """A field of a JAX ArchState node, or the key of its state dict."""
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def _seq(node):
+    """The items of a tuple field (a list once read from a file; flax
+    writes an empty tuple as an empty map)."""
+    return list(node.values()) if isinstance(node, dict) else list(node)
+
+
 def _state_from(cls, src, device):
     vals = {}
     for f in dataclasses.fields(cls):
-        v = getattr(src, f.name)
+        v = _get(src, f.name)
         vals[f.name] = torch.tensor(np.asarray(v), device=device)
     return cls(**vals)
 
 
 def arch_from_jax(jarch, device=None) -> ArchState:
     """The port's ArchState from a JAX ArchState (any leaf type that
-    np.asarray takes)."""
+    np.asarray takes), or from its state dict as a checkpoint file holds
+    it."""
     return ArchState(
-        embed=_state_from(DimArch, jarch.embed, device),
-        blocks=tuple(BlockArch(attn=_state_from(AttnArch, b.attn, device),
-                               mlp=_state_from(DimArch, b.mlp, device))
-                     for b in jarch.blocks),
-        patch=_state_from(PatchArch, jarch.patch, device),
-        fused=torch.tensor(np.asarray(jarch.fused), device=device),
+        embed=_state_from(DimArch, _get(jarch, "embed"), device),
+        blocks=tuple(BlockArch(
+            attn=_state_from(AttnArch, _get(b, "attn"), device),
+            mlp=_state_from(DimArch, _get(b, "mlp"), device))
+            for b in _seq(_get(jarch, "blocks"))),
+        patch=_state_from(PatchArch, _get(jarch, "patch"), device),
+        fused=torch.tensor(np.asarray(_get(jarch, "fused")), device=device),
         stage_embeds=tuple(_state_from(DimArch, d, device)
-                           for d in jarch.stage_embeds),
+                           for d in _seq(_get(jarch, "stage_embeds"))),
     )
 
 
@@ -223,7 +243,11 @@ def _fields(node):
 
 def _adam_states(node):
     """Every Adam state (a node with `mu`, `nu` and `count`) below `node`,
-    at any nesting of optax's chain / multi_transform / masked states."""
+    at any nesting of optax's chain / multi_transform / masked states, as
+    optax objects or as the state dicts a checkpoint file holds."""
+    if isinstance(node, dict) and {"mu", "nu", "count"} <= set(node):
+        yield node
+        return
     if all(hasattr(node, f) for f in ("mu", "nu", "count")):
         yield node
         return
@@ -238,21 +262,37 @@ def moments_from_jax(opt_state) -> Dict[str, Any]:
     and the finetune optimizer (moments over params)."""
     out: Dict[str, Any] = {"count": None, "mu": {}, "nu": {}}
     for adam in _adam_states(opt_state):
-        out["count"] = int(np.asarray(adam.count))
+        out["count"] = int(np.asarray(_get(adam, "count")))
         for which in ("mu", "nu"):
-            for path, leaf in _walk(getattr(adam, which)):
+            for path, leaf in _walk(_get(adam, which)):
                 if hasattr(leaf, "shape"):
                     out[which][leaf_name(".".join(path))] = np.array(
-                        to_torch_layout(path, np.asarray(leaf, np.float32)),
-                        order="C")
+                        to_torch_layout(path, _f32(leaf)), order="C")
     return out
+
+
+def _lr_scale(opt_state):
+    """The plateau scale of a JAX `LrScaleState` (object or state dict),
+    else None."""
+    if isinstance(opt_state, dict):
+        return opt_state.get("scale") if "inner" in opt_state else None
+    return getattr(opt_state, "scale", None) \
+        if hasattr(opt_state, "inner") else None
 
 
 def load_moments_from_jax(state, opt_state):
     """Copy a JAX optimizer state's moments and update count into the
-    port's `AdamWState` (or the `LrScaleState` around one), in place."""
+    port's `AdamWState` (or the `LrScaleState` around one, with its
+    plateau scale), in place."""
     from ..core.optim import set_count
     adam = getattr(state, "inner", state)
+    scale = _lr_scale(opt_state)
+    if (scale is None) != (adam is state):
+        raise KeyError("JAX optimizer state and the port's differ: one has "
+                       "a plateau scale (with_lr_scale), the other not")
+    if scale is not None:
+        with torch.no_grad():
+            state.scale.copy_(torch.as_tensor(_f32(scale)))
     got = moments_from_jax(opt_state)
     if set(got["mu"]) != set(adam.mu):
         raise KeyError("JAX optimizer state and the port's differ in leaves: "

@@ -1,10 +1,13 @@
-"""Model registry: named DeiT search supernets and dense DeiT models.
+"""Model registry: named DeiT search supernets and dense ViT models.
 
-Port of the DeiT half of ofb_tpu/models/registry.py. `create_model`
-returns a `ModelBundle` (static config, search space, device) whose
-`init` builds the parameters (and, for a supernet, alphas and arch
-state). The dense factories take the dims of an exported subnet as
-overrides. Other families (stock ViT variants, Swin) are not ported yet.
+Port of ofb_tpu/models/registry.py. `create_model` returns a
+`ModelBundle` (static config, search space, device) whose `init` builds
+the parameters (and, for a supernet, alphas and arch state). Registered:
+the DeiT supernets, the dense DeiT models (whose factories take the dims
+of an exported subnet as overrides) and the stock ViTs of the JAX package,
+its in21k models (tanh pre-logits), the MIIL models (no qkv bias) and the
+`vit_deit_*` aliases. The Swin family is not ported: its names raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -52,9 +55,19 @@ def list_models():
     return sorted(_REGISTRY)
 
 
+# the JAX package's Swin names, whose family is not ported
+SWIN_NAMES = tuple(f"swin_{size}_patch4_window7_224{kind}"
+                   for size in ("tiny", "small", "base")
+                   for kind in ("", "_mim"))
+
+
 def create_model(name: str, *, device="cuda", **kwargs) -> ModelBundle:
-    """The named supernet on `device` (default "cuda"; raises without a
-    card unless device="cpu" is asked for)."""
+    """The named model on `device` (default "cuda"; raises without a card
+    unless device="cpu" is asked for)."""
+    if name in SWIN_NAMES:
+        raise NotImplementedError(
+            f"model '{name}' is of the Swin family, which the port does not "
+            "have yet: ROADMAP Queue 1 item 16")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {list_models()}")
     return _REGISTRY[name](device=resolve_device(device), **kwargs)
@@ -139,3 +152,52 @@ def add_search_params(bundle: ModelBundle, *, attn_search=True,
         mask_ratio=mask_ratio)
     return ModelBundle(name=bundle.name + "_mim", cfg=cfg, space=space,
                        device=bundle.device, kind="mim")
+
+
+# stock ViT variants; vit_huge takes patch 14
+_VIT_DIMS = {
+    "vit_small": dict(embed_dim=768, depth=8, num_heads=8, mlp_ratio=3.0),
+    "vit_base": dict(embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0),
+    "vit_large": dict(embed_dim=1024, depth=24, num_heads=16, mlp_ratio=4.0),
+    "vit_huge": dict(embed_dim=1280, depth=32, num_heads=16, mlp_ratio=4.0),
+}
+
+
+def _vit_factory(name: str, default_classes: int = 1000, **cfg_kw):
+    def factory(*, device: torch.device, num_classes=default_classes,
+                drop_rate=0.0, drop_path_rate=0.0) -> ModelBundle:
+        cfg = ModelCfg(num_classes=num_classes, drop_rate=drop_rate,
+                       drop_path_rate=drop_path_rate, **cfg_kw)
+        return ModelBundle(name=name, cfg=cfg, space=None, device=device,
+                           kind="dense")
+    return factory
+
+
+for _vname, _dims in _VIT_DIMS.items():
+    for _patch in ((14,) if _vname == "vit_huge" else (16, 32)):
+        for _img in (224, 384):
+            _n = f"{_vname}_patch{_patch}_{_img}"
+            _REGISTRY[_n] = _vit_factory(_n, img_size=_img,
+                                         patch_size=_patch, **_dims)
+        # in21k pretraining: 21843 classes and a tanh pre-logits layer
+        # (no vit_small)
+        if _vname != "vit_small":
+            _n = f"{_vname}_patch{_patch}_224_in21k"
+            _REGISTRY[_n] = _vit_factory(
+                _n, 21843, img_size=224, patch_size=_patch,
+                representation_size=_dims["embed_dim"], **_dims)
+
+# MIIL: ViT-B/16 without the qkv bias
+for _n, _classes in (("vit_base_patch16_224_miil_in21k", 11221),
+                     ("vit_base_patch16_224_miil", 1000)):
+    _REGISTRY[_n] = _vit_factory(_n, _classes, img_size=224, patch_size=16,
+                                 qkv_bias=False, **_VIT_DIMS["vit_base"])
+
+# vit_deit_*: the DeiT models under a second name
+for _size in ("tiny", "small", "base"):
+    for _img, _dist in ((224, False), (224, True), (384, False), (384, True)):
+        if _img == 384 and _size != "base":
+            continue
+        _suffix = "_distilled" if _dist else ""
+        _REGISTRY[f"vit_deit_{_size}{_suffix}_patch16_{_img}"] = \
+            _REGISTRY[f"deit_{_size}{_suffix}_patch16_{_img}"]

@@ -9,12 +9,11 @@ Port of ofb_tpu/models/teacher.py. A teacher is a frozen callable,
     `teacher_path` or a seeded random init;
   * a registry DeiT / ViT name: a dense ViT, from a timm state dict through
     `torch_import` or a seeded random init;
-  * a directory: a port checkpoint of an exported model (its `model_cfg` in
-    the meta). A finetune's `best` holds the better of its raw and EMA
-    weights as `params` (its meta names the `eval_winner`), and the teacher
-    takes those; any other directory its EMA weights when it has them,
-    else its params. A JAX package checkpoint raises: reading one is not
-    ported yet.
+  * a directory: a checkpoint of an exported model (its `model_cfg` in
+    the meta), the port's or the JAX package's. A finetune's `best` holds
+    the better of its raw and EMA weights as `params` (its meta names the
+    `eval_winner`), and the teacher takes those; any other directory its
+    EMA weights when it has them, else its params.
 
 No weights are downloaded: without `teacher_path` the weights come from a
 seed, as in the JAX package.
@@ -51,15 +50,13 @@ def _from_checkpoint(path: str, dev, compute_dtype) -> Callable:
     meta = ckpt.latest_meta(path)
     if meta is None:
         raise SystemExit(f"teacher_path {path}: no checkpoint meta.json found")
-    if ckpt.is_jax_checkpoint(path, meta):
-        raise NotImplementedError(
-            f"teacher_path {path} is a JAX package checkpoint; reading one "
-            "is not ported yet: ROADMAP Queue 1 item 19")
     if "model_cfg" not in meta:
         raise SystemExit(f"teacher_path {path}: a teacher checkpoint is an "
                          "exported model with a model_cfg in its meta.json")
     cfg = ckpt.model_cfg_from_meta(meta["model_cfg"], ModelCfg)
-    params, ema = ViT(cfg).to(dev), ViT(cfg).to(dev)
+    # the weights come from the checkpoint: built on the device, unseeded
+    params = ViT(cfg, device=dev)
+    ema = ViT(cfg, device=dev) if "ema" in meta.get("parts", []) else None
     restored = ckpt.load_checkpoint(path, params=params, ema_params=ema)
     use = "params" if "eval_winner" in meta or "ema" not in restored \
         else "ema"

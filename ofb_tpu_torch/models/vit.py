@@ -28,8 +28,9 @@ from ..ops.gates import layer_norm
 class ModelCfg:
     """Static model hyper-parameters. `head_dim` / `mlp_hidden` may be set
     for exported subnets; `block_overrides` gives per-block
-    (num_heads, head_dim, mlp_hidden) when blocks were pruned apart. The
-    in21k pre-logits layer (`representation_size`) is not ported yet."""
+    (num_heads, head_dim, mlp_hidden) when blocks were pruned apart.
+    `representation_size` adds the in21k models' pre-logits layer (a
+    linear and tanh before the head; none in a distilled model)."""
 
     img_size: int = 224
     patch_size: int = 16
@@ -44,6 +45,7 @@ class ModelCfg:
     qkv_bias: bool = True
     qk_scale: Optional[float] = None
     distilled: bool = False
+    representation_size: Optional[int] = None
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
@@ -76,6 +78,10 @@ class ModelCfg:
     @property
     def num_tokens(self) -> int:
         return 2 if self.distilled else 1
+
+    @property
+    def pre_logits(self) -> bool:
+        return bool(self.representation_size) and not self.distilled
 
     def drop_path_schedule(self) -> Tuple[float, ...]:
         """Stochastic-depth decay rule: linspace(0, rate, depth)."""
@@ -161,8 +167,13 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, i, generator, device) for i in range(cfg.depth))
         self.norm = _ln(D, cfg.ln_eps, device)
+        if cfg.pre_logits:
+            self.pre_logits = _linear(D, cfg.representation_size, True,
+                                      generator, device)
         if cfg.num_classes > 0:
-            self.head = _linear(D, cfg.num_classes, True, generator, device)
+            head_in = cfg.representation_size if cfg.pre_logits else D
+            self.head = _linear(head_in, cfg.num_classes, True, generator,
+                                device)
         if cfg.distilled:
             self.head_dist = _linear(D, cfg.num_classes, True, generator,
                                      device)
@@ -277,7 +288,10 @@ def vit_forward(params: ViT, x, cfg: ModelCfg, *, train: bool = False,
         if train:
             return logits, logits_d
         return (logits + logits_d) / 2.0
-    return linear(params.head, tok[:, 0]).float()
+    feat = tok[:, 0]
+    if cfg.pre_logits:
+        feat = torch.tanh(linear(params.pre_logits, feat))
+    return linear(params.head, feat).float()
 
 
 def dense_flops(cfg: ModelCfg) -> float:

@@ -2,7 +2,10 @@
 `<part>.pt` files plus `meta.json` written last, restored in place.
 
 Round trips are bit-identical: every tensor of the supernet's params,
-alphas, arch state, optimizer state and EMA, and of an exported subnet.
+alphas, arch state, optimizer state and EMA, and of an exported subnet. A
+directory the JAX package wrote is read in place, and a part its meta
+lists but whose file is missing raises (test_torch_port_jax_checkpoint.py
+holds the rest of the JAX reader).
 """
 
 import dataclasses
@@ -191,12 +194,46 @@ def test_meta_is_written_last_and_required(tmp_path, monkeypatch):
                                                patch_size=8)))
 
 
+def _jax_checkpoint(path, **parts):
+    params = {"head": {"kernel": np.arange(6, dtype=np.float32).reshape(2, 3),
+                       "bias": np.ones((3,), np.float32)}}
+    JCk.save_checkpoint(str(path), params=jax.tree_util.tree_map(
+        jax.numpy.asarray, params), meta={"epoch": 1}, **parts)
+    assert json.load(open(path / "meta.json"))["parts"] == \
+        ["params"] + ["ema"] * ("ema_params" in parts)
+    return params
+
+
+def _head_module():
+    """A module holding only a (3, 2) linear `head`, the JAX tree's."""
+    m = torch.nn.Module()
+    m.head = ViT(ModelCfg(embed_dim=2, depth=0, num_heads=1, img_size=8,
+                          patch_size=8, num_classes=3)).head
+    return m
+
+
 def test_a_jax_checkpoint_raises(tmp_path):
-    params = {"head": {"kernel": np.ones((2, 3), np.float32),
-                       "bias": np.zeros((3,), np.float32)}}
-    JCk.save_checkpoint(str(tmp_path / "j"), params=jax.tree_util.tree_map(
-        jax.numpy.asarray, params), meta={"epoch": 1})
-    assert json.load(open(tmp_path / "j" / "meta.json"))["parts"] == \
-        ["params"]
-    with pytest.raises(ValueError, match="JAX"):
-        ck.load_checkpoint(str(tmp_path / "j"), params=supernet(0)[3].params)
+    """A JAX checkpoint whose meta lists a part that is missing raises
+    when the part is asked for (the JAX package's loader skips it)."""
+    params = _jax_checkpoint(tmp_path / "j", ema_params=jax.tree_util
+                             .tree_map(jax.numpy.asarray, {"x": np.ones(1)}))
+    os.remove(tmp_path / "j" / "ema.msgpack")
+    with pytest.raises(FileNotFoundError, match="'ema' listed"):
+        ck.load_checkpoint(str(tmp_path / "j"), params=_head_module(),
+                           ema_params={})
+    assert set(JCk.load_checkpoint(str(tmp_path / "j"), params=params)) == \
+        {"meta", "params"}
+
+
+def test_a_jax_checkpoint_is_read_in_place(tmp_path):
+    params = _jax_checkpoint(tmp_path / "j")
+    head = _head_module()
+    weight = head.head.weight
+    out = ck.load_checkpoint(str(tmp_path / "j"), params=head)
+    assert out["params"] is head and head.head.weight is weight
+    assert torch.equal(weight, torch.from_numpy(params["head"]["kernel"].T))
+    assert torch.equal(head.head.bias, torch.ones(3))
+    # a module whose names differ raises
+    with pytest.raises(KeyError, match="differ"):
+        ck.load_checkpoint(str(tmp_path / "j"),
+                           params=supernet(0)[3].params)

@@ -82,12 +82,12 @@ def _jax_exported(root):
     meta = {"exported": True, "model_cfg": dataclasses.asdict(dcfg)}
     JCk.save_checkpoint(os.path.join(root, "jax_exported"), params=dense,
                         meta=meta)
-    # the port's ModelCfg lacks the JAX package's in21k pre-logits and
-    # rematerialisation fields (neither is set here)
+    # the port's ModelCfg lacks the JAX package's rematerialisation field
+    # (a memory device of XLA's, not set here)
     known = {f.name for f in dataclasses.fields(ModelCfg)}
     fields = json.loads(json.dumps(meta["model_cfg"]))
     assert {k: v for k, v in fields.items() if k not in known} == {
-        "representation_size": None, "remat": False}
+        "remat": False}
     pcfg = ck.model_cfg_from_meta({k: v for k, v in fields.items()
                                    if k in known}, ModelCfg)
     port = load_from_jax(ViT(pcfg), np_tree(dense))
@@ -343,3 +343,22 @@ def test_cuda_is_the_default_device(module, argv):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             module.main(args)
+
+
+def test_synthetic_size_sets_the_finetune_and_eval_sets(tmp_path):
+    """--synthetic-size of cli.finetune and cli.eval (as cli.search's)
+    sizes SYNTHETIC's train and val sets."""
+    state, text = _port(finetune, [
+        "--from-scratch", "--tiny-test", "--data-set", "SYNTHETIC",
+        "--synthetic-size", "512", "--batch-size", "256", "--epochs", "1",
+        "--device", "cpu", "--compute-dtype", "float32", "--num_workers",
+        "0", "--no-model-ema", "--output_dir", str(tmp_path / "f")])
+    assert int(state.step) == 2 and "Epoch [0] [1/2]" in text
+    stats, _ = _port(eval_cli, [
+        "--checkpoint", str(tmp_path / "f" / "best"), "--data-set",
+        "SYNTHETIC", "--synthetic-size", "256", "--batch-size", "128",
+        "--device", "cpu", "--compute-dtype", "float32"])
+    # accuracies in steps of one image in 256
+    for k in ("acc1", "acc5"):
+        assert stats[k] * 256 / 100 == pytest.approx(
+            round(stats[k] * 256 / 100), abs=1e-6)

@@ -13,8 +13,9 @@ fp32, from the same weights:
   1e-4), params atol 2e-5, as in test_torch_port_step.py;
 * `build_teacher`'s three branches: RegNetY from a seed or a state dict, a
   registry DeiT through `torch_import`, a port checkpoint directory (its
-  EMA weights, or a finetune's eval winner), and a JAX checkpoint directory
-  raising.
+  EMA weights, or a finetune's eval winner), and a JAX package checkpoint
+  directory (a finetune's best: its eval winner, JAX's logits within 1e-5
+  of their largest magnitude).
 """
 
 import dataclasses
@@ -334,13 +335,24 @@ def test_build_teacher_branches(tmp_path):
                       compute_dtype=torch.float32, device="cpu")
     torch.testing.assert_close(t(x), vf(params, x, vcfg,
                                         compute_dtype=torch.float32))
-    # a JAX package checkpoint directory raises, naming the queue item
-    j = tmp_path / "jax_ck"
-    j.mkdir()
-    (j / "params.msgpack").write_bytes(b"")
-    (j / "meta.json").write_text(json.dumps({"parts": ["params"]}))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        build_teacher("x", teacher_path=str(j), num_classes=16, device="cpu")
+    # a JAX package checkpoint directory: a finetune's best, its eval
+    # winner in params, JAX's forward of those weights
+    from ofb_tpu.core import checkpoint as JCk
+    jcfg = jvit.ModelCfg(**TINY)
+    jraw = jvit.init_vit_params(jax.random.PRNGKey(5), jcfg)
+    jema = jax.tree_util.tree_map(lambda a: 0.5 * a, jraw)
+    j = str(tmp_path / "jax_ck")
+    JCk.save_checkpoint(j, params=jraw, ema_params=jema, meta={
+        "exported": True, "eval_winner": "raw",
+        "model_cfg": dataclasses.asdict(jcfg)})
+    assert json.load(open(tmp_path / "jax_ck" / "meta.json"))["parts"] == [
+        "params", "ema"]
+    t = build_teacher("x", teacher_path=j, num_classes=16,
+                      compute_dtype=torch.float32, device="cpu")
+    want = jvit.vit_forward(jraw, jnp.asarray(x.numpy()), jcfg,
+                            compute_dtype=jnp.float32)
+    np.testing.assert_allclose(t(x).numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
     with pytest.raises(SystemExit):
         build_teacher("no_such_model", num_classes=16, device="cpu")
 
