@@ -11,7 +11,10 @@ which raises (and so exits non-zero) on failure:
      ones and the general one, each asked for by name), at the DeiT-S
      shapes of the search step, the exported subnet's shapes (head dims
      8 * odd among them, which the `wgmma` bodies run zero-padded to the
-     next multiple of 16) and ragged shapes, in bf16 and fp32 (TF32 off);
+     next multiple of 16), ragged shapes and head dims that are not a
+     multiple of 8 (4, 6, 12, 36: the general body's alone), in bf16 and
+     fp32 (TF32 off), the general body also on views whose rows start one
+     element into a wider buffer (no row 16-byte aligned);
      the streaming body at DeiT-S and DeiT-B at 384 pixels (577 tokens),
      ragged token counts up to 1025, 8 * odd head dims at 577 and, named,
      at 1, 17 and 197 tokens; every output finite;
@@ -32,11 +35,15 @@ which raises (and so exits non-zero) on failure:
      and /32) at the batch of phase 10's runs: its body, the twin and SDPA
      beside the bound; and the general body in fp32, the type it serves,
      at DeiT-S at 224 and 384 pixels beside the twin, SDPA in fp32 and the
-     fp32 bound (the CUDA cores' 67 TFLOP/s);
+     fp32 bound (the CUDA cores' 67 TFLOP/s), its ratios to SDPA and to the
+     bound printed; it must be faster than the twin by device time there;
   4. reference: the port's DeiT-S forward and backward on the card (fp32,
      kernels) against the same model on the CPU (fp32, plain twins); the
      card's pass is a driven path of its own, counted from 0: 12 + 12
-     launches, all through the general body (fp32);
+     launches, all through the general body (fp32); then a subnet with
+     head dims 4, 6, 12 and 36 (DeiT-S's width, 4 blocks): two dense train
+     steps and an eval step in fp32 on the card against the CPU, its 12 + 8
+     launches all general;
   5. the slice: the DeiT-S search step at full width on the card, bf16,
      batch 64: finite losses, and the attention kernels launched exactly
      12 + 12 times per microbatch, counted from 0, all through the
@@ -148,9 +155,17 @@ RAGGED = [(3, 17, 2, 16), (3, 17, 2, 8), (2, 33, 3, 24), (2, 70, 2, 40),
 # the resident body: bf16, N <= 256, d a multiple of 8, aligned rows
 RESIDENT = [DEIT_S, (2, 197, 6, 32), (2, 197, 3, 128), (2, 50, 4, 32),
             (2, 256, 2, 64)] + RAGGED + SUBNET
-# the general body: unaligned views and fp32; asked for by name at the
-# resident and the streaming bodies' shapes too
-GENERAL = [DEIT_S, (2, 257, 2, 64), (2, 577, 2, 64)] + RAGGED + SUBNET
+# head dims off multiples of 8 (a tiny search exports 4 .. 16), which only
+# the general body takes: DeiT's 197 tokens, a Swin window with its cls,
+# DeiT at 384 pixels, a ragged count
+SMALL_HEADS = [(2, 197, 2, 12), (3, 50, 3, 6), (2, 577, 2, 36), (3, 17, 1, 4)]
+# the general body: unaligned views, fp32 and head dims off multiples of 8;
+# asked for by name at the resident and the streaming bodies' shapes too
+GENERAL = [DEIT_S, (2, 257, 2, 64), (2, 577, 2, 64)] + RAGGED + SUBNET \
+    + SMALL_HEADS
+# ... and as views whose rows start one element into a wider buffer, so that
+# no row is 16-byte aligned (the 4-byte copies of the fp32 kernels)
+GENERAL_UNALIGNED = SMALL_HEADS + [(2, 197, 2, 64), (3, 17, 2, 40)]
 # the streaming body: DeiT-S and DeiT-B at 384 pixels (577 = 9 x 64 + 1:
 # one valid key in the last tile), ragged token counts (1025 walks 17 key
 # tiles through a ring of 3 or 4), an exported subnet's head dims at 577 (24,
@@ -341,10 +356,17 @@ def ptxas_report(log_text):
             name = None
 
 
-def make_qkv(B, N, H, d, dtype, gen):
+def make_qkv(B, N, H, d, dtype, gen, offset=0):
     """q pre-scaled and contiguous, k and v strided views of a
-    (B, N, 3, H, d) buffer: what the search step hands the kernels."""
+    (B, N, 3, H, d) buffer: what the search step hands the kernels. With
+    offset > 0 all three are views that start `offset` elements into the
+    rows of a (B, N, 3, H, d + offset) buffer: no row is 16-byte aligned."""
     import torch
+    if offset:
+        buf = torch.randn((B, N, 3, H, d + offset), generator=gen,
+                          device="cuda").to(dtype)
+        buf[:, :, 0] = (buf[:, :, 0].float() * d ** -0.5).to(dtype)
+        return tuple(buf[:, :, i, :, offset:] for i in range(3))
     buf = torch.randn((B, N, 3, H, d), generator=gen, device="cuda").to(dtype)
     q = (buf[:, :, 0].float() * d ** -0.5).to(dtype)
     return q, buf[:, :, 1], buf[:, :, 2]
@@ -384,9 +406,11 @@ def check_kernels(A):
     cases += [(shape, torch.bfloat16, "streaming") for shape in STREAMING]
     cases += [(shape, dtype, "general") for shape in GENERAL
               for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(shape, dtype, "general", 1) for shape in GENERAL_UNALIGNED
+              for dtype in (torch.bfloat16, torch.float32)]
     main_err = {}
-    for shape, dtype, body in cases:
-        q, k, v = make_qkv(*shape, dtype, gen)
+    for shape, dtype, body, *offset in cases:
+        q, k, v = make_qkv(*shape, dtype, gen, *offset)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         fit = A.attention_body(shape[1], shape[3], dtype).name
         if body == "resident" and fit != body or \
@@ -408,13 +432,16 @@ def check_kernels(A):
         scales = uncancelled_scales(q, k, v, do) if shape[1] == 1 \
             else (1e-30,) * 3
         bwd = [rel_err(g, r, c) for g, r, c in zip((dq, dk, dv), ref, scales)]
-        log(f"kernels {body} {shape} {dtype}: fwd rel {fwd[1]:.3e}, lse "
+        view = " unaligned views" if offset else ""
+        log(f"kernels {body} {shape} {dtype}{view}: fwd rel {fwd[1]:.3e}, lse "
             f"abs {lse_err:.3e}, bwd rel " +
             ", ".join(f"{e[1]:.3e}" for e in bwd) + f" (tol {tol:g})")
         if not (fwd[1] <= tol and lse_err <= 1e-3
                 and max(e[1] for e in bwd) <= tol):
             raise AssertionError(f"the {body} body disagrees with its twin "
-                                 f"at {shape} {dtype}")
+                                 f"at {shape} {dtype}{view}")
+        if offset:
+            continue
         if shape == DEIT_S and body == "resident" \
                 or shape == STREAMING[0] and body == "streaming" \
                 or shape == DEIT_S and body == "general" \
@@ -753,6 +780,18 @@ def time_general_fp32(A):
         _time_row(row, _attention_calls(A, q, k, v, do, "general"),
                   f"{(B, N, H, d)} fp32, general body")
         rows.append(row)
+        dev = {n: row[f"{n}_kernel_device_ms"] for n in ("fwd", "bwd")}
+        log(f"fp32 general body at {(B, N, H, d)}, device time: " + "; ".join(
+            f"{n} {dev[n]:.4f} ms = {dev[n] / row[f'{n}_sdpa_device_ms']:.2f}x "
+            f"SDPA, {dev[n] / row[f'{n}_bound_ms']:.2f}x the bound, "
+            f"{row[f'{n}_plain_device_ms'] / dev[n]:.2f}x faster than the "
+            f"twin" for n in ("fwd", "bwd")))
+        slow = [n for n in ("fwd", "bwd")
+                if dev[n] >= row[f"{n}_plain_device_ms"]]
+        if slow:
+            raise AssertionError(f"the fp32 general body's {slow} at "
+                                 f"{(B, N, H, d)} is not faster than its "
+                                 f"plain twin by device time")
         tag = "" if N == 197 else f"_{N}"
         for n in ("fwd", "bwd"):
             f = fields.setdefault(f"attention_{n}_general", {"dtype":
@@ -813,6 +852,72 @@ def check_against_cpu(A):
         raise AssertionError(f"fp32 launches by body {counts}, expected "
                              f"12 general each")
     log(f"reference: launches by body {counts}")
+    return kernel_counts(counts)
+
+
+# a subnet whose head dims are not multiples of 8 (4, 6, 12, 36), as a
+# `--tiny-test` search exports them, at DeiT-S's width and token count; depth
+# cut to its four blocks
+SMALL_HEADS_CFG = dict(img_size=224, patch_size=16, num_classes=1000,
+                       embed_dim=384, depth=4, num_heads=6, drop_path_rate=0.0,
+                       block_overrides=((6, 4, 1536), (6, 6, 1536),
+                                        (6, 12, 1536), (6, 36, 1536)))
+
+
+def check_small_heads(A, steps=2, batch=8):
+    """Phase 4, continued: that subnet's dense train steps (layer-decay
+    AdamW, label smoothing) and an eval step on the card, fp32, against the
+    same steps on the CPU from the same weights and images, within phase
+    4's tolerances (losses rel 1e-4, parameters after the steps and the
+    eval loss rel 1e-3); the card's launches, counted from 0, all on the
+    general body: per block one forward and one backward a train step, one
+    forward for the eval step. Returns those launches."""
+    import copy
+    import torch
+    from ofb_tpu_torch.core import lr_decay as LD
+    from ofb_tpu_torch.core import steps as S
+    from ofb_tpu_torch.models.vit import ModelCfg, ViT
+
+    cfg = ModelCfg(**SMALL_HEADS_CFG)
+    g = torch.Generator().manual_seed(16)
+    model = ViT(cfg, generator=g)
+    images = torch.rand((steps + 1, 1, batch, 224, 224, 3), generator=g)
+    labels = torch.randint(0, 1000, (steps + 1, 1, batch), generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        tx = LD.build_finetune_optimizer(
+            m, lr_schedule=lambda c: 1e-4, betas=(0.9, 0.95),
+            weight_decay=0.05, layer_decay=0.75, num_layers=cfg.depth)
+        state = S.TrainState(0, m, None, None,
+                             tx.init(dict(m.named_parameters())))
+        step = S.make_train_step(cfg, tx, num_classes=1000, smoothing=0.1,
+                                 compute_dtype=torch.float32, device=dev)
+        A.reset_launch_counts()
+        losses = []
+        for k in range(steps):
+            state, met = step(state, images[k], labels[k])
+            losses.append(met["loss"].item())
+        ev = S.make_eval_step_dense(cfg, compute_dtype=torch.float32,
+                                    device=dev)(state.params, images[steps, 0],
+                                                labels[steps, 0])
+        res[dev] = (losses, torch.cat([p.detach().flatten().cpu() for p in
+                                       state.params.parameters()]),
+                    ev["loss_sum"].item(), by_body(A))
+    (lc, pc, ec, _), (lg, pg, eg, counts) = res["cpu"], res["cuda"]
+    e_params = rel_err(pg, pc)[1]
+    log(f"small heads {[b[1] for b in cfg.block_overrides]} fp32 card vs "
+        f"CPU: train losses {lg} vs {lc}, params rel {e_params:.3e}, eval "
+        f"loss {eg:.6f} vs {ec:.6f}; launches by body {counts}")
+    if not (all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc))
+            and e_params < 1e-3 and abs(eg - ec) <= 1e-3 * abs(ec)
+            and math.isfinite(eg)):
+        raise AssertionError("the small-heads subnet on the card disagrees "
+                             "with the CPU")
+    want = only("general", cfg.depth * (steps + 1), cfg.depth * steps)
+    if counts != want:
+        raise AssertionError(f"small heads: launches by body {counts}, "
+                             f"expected {want}")
     return kernel_counts(counts)
 
 
@@ -1819,6 +1924,7 @@ def main():
     vit_times = timed("3 vit", time_vit_family, A)
     fp32_times, fp32_fields = timed("3 fp32", time_general_fp32, A)
     fp32 = timed("4", check_against_cpu, A)
+    small = timed("4 small heads", check_small_heads, A)
     launches = timed("5", run_slice, A)
     lifecycle = timed("6", run_lifecycle, A, smi)
     root = tempfile.mkdtemp(prefix="ofb_cli_")
@@ -1839,7 +1945,8 @@ def main():
             ("attention_bwd_general", "attention_bwd.cu", 81),
             ("attention_fwd_streaming", "attention_fwd_streaming.cu", 115),
             ("attention_bwd_streaming", "attention_bwd_streaming.cu", 127)):
-        phases = dict(launches_fp32=fp32[name] + vit_fp32.get(name, 0),
+        phases = dict(launches_fp32=fp32[name] + small[name]
+                      + vit_fp32.get(name, 0),
                       launches_search=launches[name],
                       launches_lifecycle=lifecycle[name],
                       launches_cli=cli[name], launches_384=at384[name],

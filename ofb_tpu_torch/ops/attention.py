@@ -16,19 +16,23 @@ repeat the kernels' arithmetic. Each wrapper counts its launches in
 
 Three kernel bodies, all hand-written. `resident` (csrc/*_resident.cu)
 keeps a whole head's K and V (or Q and dO) in shared memory and the scores
-in `wgmma` registers; it takes bf16, up to 256 tokens, every head dim the
-wrappers take (a multiple of 8 up to 128; 8 * odd ones, such as the 24, 40
-and 56 of exported subnets, run zero-padded to the next multiple of 16 in
-shared memory) and rows that start on 16 bytes. `streaming` (csrc/
+in `wgmma` registers; it takes bf16, up to 256 tokens, head dims that are a
+multiple of 8 up to 128 (8 * odd ones, such as the 24, 40 and 56 of
+exported subnets, run zero-padded to the next multiple of 16 in shared
+memory) and rows that start on 16 bytes. `streaming` (csrc/
 *_streaming.cu) keeps 64 or 128 query rows (or keys) of a head in shared
 memory and streams the other side through a ring of 64-row tiles, with an
 online softmax in `wgmma` registers; it takes what the resident body takes
 at any token count and serves more than 256 tokens (DeiT at 384 pixels:
 577).
-`general` (csrc/attention_fwd.cu, attention_bwd.cu) tiles both sides and
-takes every shape and type the wrappers accept; it serves what the other
-two do not: unaligned views and fp32. `attention_body` picks one from the
-shape, the type and the alignment alone; a body that fails to build or
+`general` (csrc/attention_fwd.cu, attention_bwd.cu) takes every shape,
+type and head dim in [1, 128] the wrappers accept; it serves what the other
+two do not: fp32 (FMA on the CUDA cores: register tiles of scores, 8 x 8
+in the forward and 4 x 8 in the backward, the streamed side
+double-buffered by cp.async), unaligned bf16 views and head dims that are
+not a multiple of 8 (the small heads a tiny search exports; bf16 on the
+tensor cores with WMMA). `attention_body` picks one from
+the shape, the type and the alignment alone; a body that fails to build or
 launch raises, nothing reroutes.
 
 Layout is the model's own (B, N, H, d) on both sides. q, k, v may be
@@ -97,8 +101,8 @@ def _check(*ts):
     if q.dim() != 4:
         raise ValueError(f"attention expects (B, N, H, d) tensors, got {tuple(q.shape)}")
     B, N, H, d = q.shape
-    if d % 8 != 0 or not 8 <= d <= 128:
-        raise ValueError(f"head dim {d} is not a multiple of 8 in [8, 128]")
+    if not 1 <= d <= 128:
+        raise ValueError(f"head dim {d} is not in [1, 128]")
     if q.dtype not in _DTYPES:
         raise TypeError(f"attention kernels take float32 or bfloat16, not {q.dtype}")
     for t in ts:
@@ -117,8 +121,8 @@ def _strides(*ts):
 class Body(NamedTuple):
     """What `attention_body` decides: the kernel body, the key count its
     forward pads to, and the dynamic shared memory (bytes) its forward and
-    its two backward kernels ask for; zeros for the general body, whose C
-    launchers size their own tiles."""
+    its two backward kernels ask for (the general body's: its fp32
+    kernels'; its bf16 WMMA kernels size their own)."""
     name: str
     padded_keys: int
     smem_fwd: int
@@ -142,10 +146,11 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     192 < N <= 208; its backward is one fused kernel for d16 <= 64 (q, k, v,
     do, o in whole 64-row tiles, three output stages, lse and delta) and a
     dq and a dk/dv kernel above (the resident side padded to 16). The
-    streaming body walks the keys in tiles of 64."""
+    streaming body walks the keys in tiles of 64; so does the general one
+    (`_general_body`)."""
     if dtype != torch.bfloat16 or N < 1 or d % 8 != 0 \
             or not 8 <= d <= 128 or not aligned:
-        return Body("general", 0, 0, 0)
+        return _general_body(N, d)
     dp = 64 if d <= 64 else 128                          # d16 <= 64
     tile = 64 * dp * 2                                   # 64 rows, bf16
     rows64 = 64 * -(-N // 64)                            # whole 64-row tiles
@@ -161,6 +166,22 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
         dkdv = 2 * rows16 * dp * 2 + 4 * tile + 2 * rows16 * 4 + 1024
         bwd = max(dq, dkdv)
     return Body("resident", keys, fwd, bwd)
+
+
+def _general_body(N: int, d: int) -> Body:
+    """The general body's fp32 kernels (csrc/attention_common.cuh
+    `f32_smem_*`): fp32 tiles of DP = 32 * ceil(d / 32) columns, keys (or
+    queries) streamed in tiles of 64. The forward keeps 128 query rows
+    resident for DP <= 64, else 64, with k and v double-buffered and p of
+    half a key tile (rows x 32); the backward kernels keep 64 rows
+    resident: the dq kernel q and do, k and v double-buffered and a 64 x 64
+    ds tile; the dk/dv kernel k and v, q and do double-buffered with their
+    lse and delta (4 x 64) and a 64 x 64 p / ds tile."""
+    dp = 32 * -(-d // 32)
+    bm = 128 if dp <= 64 else 64
+    fwd = 4 * (bm * dp + 4 * 64 * dp + bm * 32)
+    dq = 4 * (2 * 64 * dp + 4 * 64 * dp + 64 * 64)
+    return Body("general", 64 * -(-N // 64), fwd, dq + 4 * 4 * 64)
 
 
 def _streaming_body(keys: int, dp: int, tile: int) -> Body:

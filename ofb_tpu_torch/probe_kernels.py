@@ -1,19 +1,20 @@
-"""Probe: where the resident and the streaming attention kernels spend
-their time.
+"""Probe: where the resident, the streaming and the general (fp32)
+attention kernels spend their time.
 
 There is no hardware profiler to ask on every machine, so this script asks
 the kernels themselves: it builds edited copies of `csrc/` (each variant a
 few exact source replacements that take work out, route it elsewhere or
 change a block's shape), and times the forward and the backward of every
 variant at its body's batch-256 shape (the resident body at the search
-step's N = 197, the streaming one at DeiT-S-384's N = 577), each variant
-in a process of its own, two rounds. The differences between variants say
+step's N = 197, the streaming one at DeiT-S-384's N = 577, both bf16; the
+general body in fp32, the type it serves, at N = 197), each variant in a
+process of its own, two rounds. The differences between variants say
 how long the copies, each pass and the alternatives take. A replacement
 whose text is no longer in the source fails the run, so a stale variant
 cannot pass unnoticed.
 
 Usage: python -m ofb_tpu_torch.probe_kernels [resident] [streaming]
-(both bodies' variants without arguments). Needs a CUDA device and nvcc.
+[general] (every body's variants without arguments). Needs a CUDA device and nvcc.
 Copies and libraries go to build/ofb_tpu_torch_probe/ (git-ignored).
 Prints one line a variant and round: its name, forward ms, backward ms,
 the shape and the card.
@@ -26,7 +27,8 @@ import sys
 from pathlib import Path
 
 # B, N, H, d at batch 256: DeiT-S at 224 and at 384 pixels
-SHAPES = {"resident": (256, 197, 6, 64), "streaming": (256, 577, 6, 64)}
+SHAPES = {"resident": (256, 197, 6, 64), "streaming": (256, 577, 6, 64),
+          "general": (256, 197, 6, 64)}
 FWD = "attention_fwd_resident.cu"
 BWD = "attention_bwd_resident.cu"
 SFWD = "attention_fwd_streaming.cu"
@@ -94,8 +96,28 @@ STREAMING_VARIANTS = {
     "stream_bwd_copies_2_ahead": [(SBWD, "DQ_AHEAD = 1, KV_AHEAD = 1",
                                    "DQ_AHEAD = 2, KV_AHEAD = 2")],
 }
+_GFWD = "OFB_FWD_F32(2, 8, 4, 2)"       # d <= 64: RM, warps, blocks an SM
+_GBWD = "OFB_BWD_F32(2, 4, 4, 2)"
+GENERAL_VARIANTS = {
+    "general_as_committed": [],
+    # the forward's 4 x 8 tiles: 64 rows of 4 warps, or 128 rows of 8
+    "general_fwd_4x8": [("attention_fwd.cu", _GFWD,
+                         "OFB_FWD_F32(2, 4, 4, 2)")],
+    "general_fwd_4x8_8_warps": [("attention_fwd.cu", _GFWD,
+                                 "OFB_FWD_F32(2, 4, 8, 2)")],
+    # the backward's 8 x 8 tiles over 128 rows (one block an SM), and its
+    # 4 x 8 tiles over 128 rows of 8 warps (one block an SM)
+    "general_bwd_8x8": [("attention_bwd.cu", _GBWD,
+                         "OFB_BWD_F32(2, 8, 4, 1)")],
+    "general_bwd_4x8_8_warps": [("attention_bwd.cu", _GBWD,
+                                 "OFB_BWD_F32(2, 4, 8, 1)")],
+}
 BODY_VARIANTS = {"resident": RESIDENT_VARIANTS,
-                 "streaming": STREAMING_VARIANTS}
+                 "streaming": STREAMING_VARIANTS,
+                 "general": GENERAL_VARIANTS}
+_LIBS = {"resident": ("attention_fwd_resident", "attention_bwd_resident"),
+         "streaming": ("attention_fwd_streaming", "attention_bwd_streaming"),
+         "general": ("attention_fwd", "attention_bwd")}
 
 
 def _use(name: str):
@@ -145,17 +167,19 @@ def _time_variant(name: str) -> None:
         return start.elapsed_time(end) / iters
 
     B, N, H, d = SHAPES[body]
+    dtype = torch.float32 if body == "general" else torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     buf = torch.randn((B, N, 3, H, d), generator=gen,
-                      device="cuda").to(torch.bfloat16)
-    q = (buf[:, :, 0].float() * d ** -0.5).to(torch.bfloat16)
+                      device="cuda").to(dtype)
+    q = (buf[:, :, 0].float() * d ** -0.5).to(dtype)
     k, v = buf[:, :, 1], buf[:, :, 2]
-    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     o, lse = A.attention_fwd(q, k, v, body=body)
     t_fwd = ms(lambda: A.attention_fwd(q, k, v, body=body))
     t_bwd = ms(lambda: A.attention_bwd(q, k, v, o, lse, do, body=body))
     print(f"{name:26s} fwd {t_fwd:.4f} ms  bwd {t_bwd:.4f} ms  "
-          f"B={B} N={N} H={H} d={d} bf16  [{card()}]", flush=True)
+          f"B={B} N={N} H={H} d={d} {str(dtype)[6:]}  [{card()}]",
+          flush=True)
 
 
 def main() -> int:
@@ -171,7 +195,7 @@ def main() -> int:
         cb = _use(name)
         cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         body = _body(name)
-        for lib in (f"attention_fwd_{body}", f"attention_bwd_{body}"):
+        for lib in _LIBS[body]:
             cmd = [cb._nvcc(), *cb.NVCC_FLAGS, "-I", str(cb.CSRC), "-o",
                    str(cb.library_path(lib)), str(cb.CSRC / cb.SOURCES[lib])]
             procs.append((name, lib, subprocess.Popen(

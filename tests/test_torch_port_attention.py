@@ -3,12 +3,15 @@
 On the CPU the wrappers run the plain twins of the CUDA kernels, so this
 holds the twins (forward, backward and the autograd Function around them)
 against JAX's reference path, its Pallas kernel pair in interpret mode,
-and `jax.grad` through the Pallas custom VJP, at DeiT's 197 tokens and at
-the streaming body's counts above 256 (577 = DeiT at 384 pixels). The CUDA
+and `jax.grad` through the Pallas custom VJP, at DeiT's 197 tokens, at
+the streaming body's counts above 256 (577 = DeiT at 384 pixels) and at
+head dims that are not a multiple of 8 (4, 12, 36), which JAX's
+`fused_mha` takes and only the general body serves; and a tiny subnet with
+such heads through the dense train and eval steps against JAX's. The CUDA
 kernels themselves (three bodies: resident, streaming and general) are held
 against the same twins on the card by chip_smoke.py; here the choice
-between the bodies, the padding and the shared memory the resident and the
-streaming ones ask for are checked, since they are plain Python.
+between the bodies, the padding and the shared memory each body asks for
+are checked, since they are plain Python.
 
 Tolerance: fp32 everywhere; the frameworks sum in other orders, so values
 and gradients agree to rtol 1e-5 / atol 2e-6 (the JAX package's own
@@ -151,17 +154,23 @@ def test_strided_views_of_qkv_and_runtime_scale():
 
 
 def test_cpu_path_counts_no_launch_and_bad_inputs_raise():
+    """Every head dim in [1, 128] passes `_check`, as JAX's `fused_mha`
+    takes any; 0 and 136 raise."""
     A.reset_launch_counts()
     q, k, v = map(torch.from_numpy, qkv())
     A.fused_mha(q, k, v, 0.25)
     assert A.attention_fwd.launches == 0 and A.attention_bwd.launches == 0
-    with pytest.raises(ValueError):
-        A._check(q[..., :12], k[..., :12], v[..., :12])       # d % 8 != 0
+    for d in (4, 6, 12, 36):
+        x = torch.zeros((2, 17, 3, d))
+        assert A._check(x, x[:], x[:]) == (2, 17, 3, d)
+    for d in (0, 136):
+        x = torch.zeros((2, 17, 3, d))
+        with pytest.raises(ValueError, match="head dim"):
+            A._check(x, x, x)
     with pytest.raises(TypeError):
         A._check(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
         A._check(q, k[:, :5], v)
-
 
 
 @pytest.mark.parametrize("N,d,dtype,aligned,want", [
@@ -188,12 +197,17 @@ def test_cpu_path_counts_no_launch_and_bad_inputs_raise():
     (197, 64, BF16, False, "general"),       # rows not on 16 bytes
     (197, 24, BF16, False, "general"),       # unaligned 8 * odd views
     (197, 56, BF16, False, "general"),
-])
+] + [(N, d, dtype, aligned, "general")     # head dims off multiples of 8
+     for N, d in ((197, 4), (197, 6), (197, 12), (577, 36), (17, 60),
+                  (197, 84))
+     for dtype in (BF16, F32) for aligned in (True, False)])
 def test_body_choice_by_shape_type_and_alignment(N, d, dtype, aligned, want):
     body = A.attention_body(N, d, dtype, aligned)
     assert body.name == want
     if want == "general":
-        assert body == A.Body("general", 0, 0, 0)
+        assert body.padded_keys == 64 * -(-N // 64)
+        assert 0 < body.smem_fwd <= A.MAX_SMEM
+        assert 0 < body.smem_bwd <= A.MAX_SMEM
 
 
 @pytest.mark.parametrize("N,keys", [(1, 64), (64, 64), (65, 128), (128, 128),
@@ -256,16 +270,37 @@ def test_streaming_shared_memory_fits_a_block(d):
     assert 2 * (deit.smem_bwd + 1024) <= 228 * 1024
 
 
-@pytest.mark.parametrize("shape", [(1, 577, 2, 40), (1, 300, 1, 64)])
-def test_twins_above_256_tokens_match_jax_and_pallas(shape):
-    """The streaming body's token counts: DeiT at 384 pixels with an
-    exported subnet's 8 * odd head, and a ragged count (300 = 4 x 64 +
-    44). Forward against JAX's reference path and its Pallas kernel in
-    interpret mode; backward against the Pallas backward kernel and
-    `jax.grad` through the custom VJP."""
-    q, k, v = qkv(*shape, seed=12)
-    cot = qkv(*shape, seed=13)[0]
-    scale = 0.2
+@pytest.mark.parametrize("d", range(1, 129))
+def test_general_shared_memory_fits_a_block(d):
+    """Every head dim the general body takes asks for no more shared memory
+    than a Hopper block may have, and for what its fp32 kernels lay out
+    (csrc/attention_common.cuh): tiles of 32 * ceil(d / 32) fp32 columns;
+    the forward's q (128 resident rows up to d = 64, 64 above), two
+    buffers of k and v and half a key tile of p; the dq kernel's q and do
+    (64 resident rows), two buffers of k and v and a 64-column ds tile;
+    the dk/dv kernel's k and v, two buffers of q and do, their lse and
+    delta, the p / ds tile. At d = 64 two blocks of each kernel fit an
+    SM's 228 KB (1 KB reserved a block)."""
+    dp = 32 * -(-d // 32)
+    bm = 128 if d <= 64 else 64
+    body = A.attention_body(197, d, F32)
+    assert body.name == "general" and body.padded_keys == 256
+    assert body.smem_fwd == 4 * (bm * dp + 2 * 2 * 64 * dp + bm * 32)
+    assert body.smem_bwd == 4 * (2 * 64 * dp + 2 * 2 * 64 * dp + 64 * 64
+                                 + 4 * 64)
+    assert 0 < body.smem_fwd <= A.MAX_SMEM and 0 < body.smem_bwd <= A.MAX_SMEM
+    if d == 64:
+        assert (body.smem_fwd, body.smem_bwd) == (114688, 115712)
+        assert 2 * (body.smem_fwd + 1024) <= 228 * 1024
+        assert 2 * (body.smem_bwd + 1024) <= 228 * 1024
+
+
+def _twins_match_jax_and_pallas(shape, seed, scale):
+    """The twins through `fused_mha` against JAX's reference path and its
+    Pallas kernel in interpret mode; the backward twin against the Pallas
+    backward kernel and `jax.grad` through the custom VJP."""
+    q, k, v = qkv(*shape, seed=seed)
+    cot = qkv(*shape, seed=seed + 1)[0]
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     got = A.fused_mha(tq, tk, tv, scale)
     close(got, JA.fused_mha(q, k, v, scale, force=False))
@@ -286,6 +321,25 @@ def test_twins_above_256_tokens_match_jax_and_pallas(shape):
     (A.fused_mha(tq, tk, tv, scale) * torch.from_numpy(cot)).sum().backward()
     for t, g in zip((tq, tk, tv), grads):
         close(t.grad, g)
+
+
+@pytest.mark.parametrize("shape", [(2, 197, 2, 12), (1, 577, 2, 36),
+                                   (3, 17, 1, 4)])
+def test_twins_at_head_dims_off_multiples_of_8_match_jax_and_pallas(shape):
+    """Head dims that only the general body serves (a tiny search exports
+    4 .. 16): DeiT's 197 tokens, DeiT at 384 pixels, and a ragged count,
+    forward and backward against JAX as above 256 tokens, fp32."""
+    _twins_match_jax_and_pallas(shape, 14, 0.3)
+
+
+@pytest.mark.parametrize("shape", [(1, 577, 2, 40), (1, 300, 1, 64)])
+def test_twins_above_256_tokens_match_jax_and_pallas(shape):
+    """The streaming body's token counts: DeiT at 384 pixels with an
+    exported subnet's 8 * odd head, and a ragged count (300 = 4 x 64 +
+    44). Forward against JAX's reference path and its Pallas kernel in
+    interpret mode; backward against the Pallas backward kernel and
+    `jax.grad` through the custom VJP."""
+    _twins_match_jax_and_pallas(shape, 12, 0.2)
 
 
 def test_alignment_of_views():
@@ -332,3 +386,81 @@ def test_every_body_has_its_source():
         assert f'extern "C" int {entry}(' in src.read_text()
     for header in cuda_build._HEADERS:
         assert (cuda_build.CSRC / header).is_file()
+
+
+# a tiny exported subnet whose head dims are not multiples of 8, as a
+# `--tiny-test` search exports them (its head dim 16 searches 4, 6, .., 16)
+SMALL_HEADS = dict(img_size=32, patch_size=8, num_classes=10, embed_dim=32,
+                   depth=4, num_heads=2, mlp_ratio=2.0, drop_path_rate=0.0,
+                   block_overrides=((2, 4, 48), (3, 6, 40), (2, 12, 64),
+                                    (1, 36, 32)))
+
+
+def test_small_heads_subnet_train_and_eval_steps_match_jax():
+    """The port's dense train step (2 steps, layer-decay AdamW, label
+    smoothing) and eval step on that subnet against `ofb_tpu`'s, fp32, from
+    the same weights: every block's attention goes to the general body in
+    either type. Tolerances as in test_torch_port_finetune_step.py: loss
+    rel 1e-5, params atol 2e-5, eval loss rel 1e-4."""
+    from ofb_tpu.core import lr_decay as JL
+    from ofb_tpu.core import steps as JS
+    from ofb_tpu.models import vit as jvit
+    from ofb_tpu_torch.core import lr_decay as LD
+    from ofb_tpu_torch.core import steps as S
+    from ofb_tpu_torch.models.from_jax import flatten_from_jax, to_jax
+    from ofb_tpu_torch.models.vit import ModelCfg, ViT
+    from test_torch_port_from_jax import np_tree
+
+    cfg, jcfg = ModelCfg(**SMALL_HEADS), jvit.ModelCfg(**SMALL_HEADS)
+    N = cfg.num_patches + cfg.num_tokens
+    for i in range(cfg.depth):
+        hd = cfg.block_dims(i)[1]
+        assert hd % 8 and A.attention_body(N, hd, BF16).name == "general"
+    model = ViT(cfg, generator=torch.Generator().manual_seed(0))
+    # copies: to_jax's arrays may share memory with the parameters, which
+    # the port's step updates in place
+    jparams = jax.tree_util.tree_map(lambda a: jnp.asarray(np.array(a)),
+                                     to_jax(model))
+    opt = dict(betas=(0.9, 0.95), eps=1e-8, weight_decay=0.05,
+               layer_decay=0.75, clip_grad=None)
+    rng = np.random.default_rng(21)
+    images = rng.uniform(0, 1, (2, 1, 4, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, (2, 1, 4))
+
+    jtx = JL.build_finetune_optimizer(
+        jparams, lr_schedule=lambda c: jnp.asarray(1e-3, jnp.float32),
+        num_layers=cfg.depth, **opt)
+    jstate = JS.TrainState(step=jnp.asarray(0, jnp.int32), params=jparams,
+                           alphas=None, arch=None,
+                           opt_state=jtx.init(jparams), ema_params=None)
+    jstep = JS.make_train_step(jcfg, jtx, num_classes=10, smoothing=0.1,
+                               compute_dtype=jnp.float32, donate=False)
+    tx = LD.build_finetune_optimizer(model, lr_schedule=lambda c: 1e-3,
+                                     num_layers=cfg.depth, **opt)
+    state = S.TrainState(0, model, None, None,
+                         tx.init(dict(model.named_parameters())))
+    step = S.make_train_step(cfg, tx, num_classes=10, smoothing=0.1,
+                             compute_dtype=torch.float32, device="cpu")
+    for k in range(2):
+        jstate, jm = jstep(jstate, images[k], labels[k],
+                           jax.random.PRNGKey(k))
+        state, m = step(state, torch.from_numpy(images[k]),
+                        torch.from_numpy(labels[k]))
+        assert m["loss"].item() == pytest.approx(float(jm["loss"]), rel=1e-5)
+    want = flatten_from_jax(np_tree(jstate.params))
+    for n, p in state.params.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=0,
+                                   atol=2e-5, err_msg=n)
+
+    x = rng.uniform(0, 1, (8, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, (8,))
+    jev = JS.make_eval_step_dense(jcfg, compute_dtype=jnp.float32)(
+        jstate.params, x, y)
+    ev = S.make_eval_step_dense(cfg, compute_dtype=torch.float32,
+                                device="cpu")(state.params,
+                                              torch.from_numpy(x),
+                                              torch.from_numpy(y))
+    assert ev["loss_sum"].item() == pytest.approx(float(jev["loss_sum"]),
+                                                  rel=1e-4)
+    for k in ("top1", "top5", "count"):
+        assert ev[k].item() == float(jev[k]), k
