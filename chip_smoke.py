@@ -117,10 +117,24 @@ which raises (and so exits non-zero) on failure:
      vit_small, and their fp32 logits and gradients on the card against
      the CPU's. No bf16 run launches the general body.
 
-The line before the last is the kernels' JSON (`launches` sums the seven
+ 11. the Swin family (`run_swin`), Swin-T with per-stage widths at full
+     width and depth: the fp32 gated forward and backward on the card
+     against the CPU at batch 2; bf16 search steps at batch 64, a forced
+     compress to convergence, postsearch steps, the export, fp32 gated ==
+     fused == sliced, the subnet's train and eval steps; the planned
+     search step as a graph replay against eager; `cli.search_swin
+     --embed_search --cache-device --planned-epoch --force-finish
+     --export-finetune-epochs 1`, `cli.eval` of its best/ and
+     model_exported and one `cli.train_swin_dense` epoch; the two TPU
+     searches of runs/ladder_swin_r5 exported on the card to their
+     committed widths. Swin's window attention is plain PyTorch, as in the
+     JAX package: the phase asserts that no attention kernel launched.
+
+The line before the last is the kernels' JSON (`launches` sums the eight
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
-`launches_cli`, `launches_384`, `launches_planned` and `launches_vit` give
-each; the general body's times are fp32's); the last line is {"ok": true,
+`launches_cli`, `launches_384`, `launches_planned`, `launches_vit` and
+`launches_swin` (0) give each; the general body's times are fp32's); the
+last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1885,6 +1899,273 @@ def run_vit_family(A, card, root):
     return totals, fp32
 
 
+# phase 11: the Swin family
+SWIN_MODEL = "swin_tiny_patch4_window7_224_mim"
+SWIN_BATCH = 64
+SWIN_CALLS = 4
+SWIN_IMAGES = 512
+SWIN_RUNS = ("runs/ladder_swin_r5/t0.45", "runs/ladder_swin_r5/t0.70")
+# fp32 gradients of the card against the CPU, as max |card - cpu| over the
+# leaf's largest magnitude: sums over 12 blocks in other orders (TF32 off)
+TOL_GRADS = 1e-3
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _timed_calls(call, n):
+    """One warm-up call, then n timed back to back: (last result, s/call)."""
+    import torch
+    out = call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = call()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / n
+
+
+def run_swin(A, card, root):
+    """Phase 11: the Swin family, `SWIN_MODEL` (Swin-T: D 96, depths
+    2-2-6-2, heads 3-6-12-24, window 7, 224 px) with per-stage widths at
+    full width and depth: (a) the fp32 gated forward and backward on the
+    card against the CPU at batch 2; (b) bf16 search steps at batch 64, a
+    forced compress to convergence, postsearch steps, the export, gated ==
+    fused == sliced in fp32, the subnet's train and eval steps; (c) the
+    planned search step as a graph replay against eager; (d) in process
+    through the CLIs: `cli.search_swin --embed_search --cache-device
+    --planned-epoch --force-finish --export-finetune-epochs 1`, `cli.eval`
+    of its best/ and model_exported, one epoch of `cli.train_swin_dense`;
+    (e) the two TPU searches of runs/ladder_swin_r5 exported on the card
+    to the widths their model_exported/meta.json records. Swin's window
+    attention is plain PyTorch, as in the JAX package: no attention kernel
+    of the port may launch. Returns the launches counted (all 0)."""
+    import copy
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.cli import eval as eval_cli
+    from ofb_tpu_torch.cli import search_swin, train_swin_dense
+    from ofb_tpu_torch.core import checkpoint as ckpt
+    from ofb_tpu_torch.core.compress import compress
+    from ofb_tpu_torch.core.swin_steps import (make_planned_swin_search_step,
+                                               make_swin_search_step)
+    from ofb_tpu_torch.models.registry import create_model
+    from ofb_tpu_torch.models.swin import swin_forward
+    from ofb_tpu_torch.models.swin_search import (export_swin_subnet,
+                                                  fuse_swin_params,
+                                                  swin_model_flops,
+                                                  swin_search_forward)
+
+    # every body of both wrappers, at 0
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+
+    def add(counts):
+        for k, n in kernel_counts(counts).items():
+            totals[k] += n
+    A.reset_launch_counts()
+    f32 = dict(compute_dtype=torch.float32)
+
+    # (a) fp32 forward and backward, card against CPU
+    cpu = create_model(SWIN_MODEL, device="cpu", embed_search=True)
+    p0, a0, ar0 = cpu.init(21)
+    g = torch.Generator().manual_seed(22)
+    x = torch.rand((2, 224, 224, 3), generator=g)
+    wl = torch.randn((2, 1000), generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p, a = copy.deepcopy(p0).to(dev), copy.deepcopy(a0).to(dev)
+        logits = swin_search_forward(p, a, ar0.to(dev), x.to(dev), cpu.cfg,
+                                     cpu.space, **f32)
+        (logits * wl.to(dev)).sum().backward()
+        grads = {n: t.grad.detach().cpu() for m in (p, a)
+                 for n, t in m.named_parameters() if t.grad is not None}
+        res[dev] = (logits.detach().cpu(), grads)
+    d_logits = _rel(res["cuda"][0], res["cpu"][0])
+    d_grads = max((_rel(res["cuda"][1][n], g) if g.abs().max() > 0 else 0.0,
+                   n) for n, g in res["cpu"][1].items())
+    if d_logits > TOL_LOGITS or d_grads[0] > TOL_GRADS:
+        raise AssertionError(f"swin fp32 card vs CPU: logits {d_logits:.3e} "
+                             f"(tol {TOL_LOGITS:g}), gradients "
+                             f"{d_grads[0]:.3e} at {d_grads[1]} (tol "
+                             f"{TOL_GRADS:g})")
+    log(f"swin fp32 card vs CPU ({SWIN_MODEL}, embed search, batch 2): "
+        f"logits {d_logits:.3e} (tol {TOL_LOGITS:g}), {len(res['cpu'][1])} "
+        f"gradients, largest {d_grads[0]:.3e} at {d_grads[1]} (tol "
+        f"{TOL_GRADS:g})")
+    del res, p0, a0
+    add(by_body(A))
+
+    # (b) search -> compress -> postsearch -> export -> subnet, bf16
+    batch = SWIN_BATCH
+    bundle, state, step, images, labels = B.build_swin_step("swin_tiny",
+                                                            batch)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    box = {"state": state}
+
+    def search_call():
+        box["state"], m = step(box["state"], images, labels, gen)
+        return m
+    m, dt = _timed_calls(search_call, SWIN_CALLS)
+    m = _finite(m, "swin search step")
+    with torch.no_grad():
+        total, _ = swin_model_flops(state.alphas, state.arch, bundle.space,
+                                    bundle.cfg)
+    rates = {"search": batch / dt}
+    mfu = rates["search"] * 6 * float(total) * 1e9 / BF16_FLOPS
+    report, ms, _ = B.force_convergence(state, bundle.space)
+    if not report.finish_search:
+        raise AssertionError(f"swin: the forced compress did not converge: "
+                             f"{report.events}")
+    scfg, tx = B.search_config(batch)
+    post = make_swin_search_step(bundle.space, bundle.cfg, scfg, tx,
+                                 phase="postsearch", device="cuda")
+
+    def post_call():
+        box["state"], m = post(box["state"], images, labels, gen)
+        return m
+    pm, dt = _timed_calls(post_call, SWIN_CALLS)
+    pm = _finite(pm, "swin postsearch step")
+    rates["postsearch"] = batch / dt
+    dense, dcfg, meta = export_swin_subnet(state.params, state.arch,
+                                           bundle.space, bundle.cfg)
+    xs = images[0, :4]
+    with torch.no_grad():
+        gated = swin_search_forward(state.params, state.alphas, state.arch,
+                                    xs, bundle.cfg, bundle.space, **f32)
+        fp, farch = fuse_swin_params(state.params, state.arch, bundle.space,
+                                     bundle.cfg)
+        fused = swin_search_forward(fp, state.alphas, farch, xs, bundle.cfg,
+                                    bundle.space, fused=True, **f32)
+        sliced = swin_forward(dense, xs, dcfg, **f32)
+    d_fused, d_sliced = _rel(fused, gated), _rel(sliced, gated)
+    if max(d_fused, d_sliced) > TOL_LOGITS:
+        raise AssertionError(f"swin gated vs fused {d_fused:.3e}, vs sliced "
+                             f"{d_sliced:.3e} (tol {TOL_LOGITS:g})")
+    del fp, dense
+    _, _, _, fstate, train, evaluate = B.build_swin_subnet_steps(
+        bundle, state, batch)
+    sub = fstate.params
+    fbox = {"state": fstate}
+
+    def train_call():
+        fbox["state"], m = train(fbox["state"], images, labels, gen)
+        return m
+    tm, dt = _timed_calls(train_call, SWIN_CALLS)
+    tm = _finite(tm, "swin subnet train step")
+    rates["subnet train"] = batch / dt
+    em, dt = _timed_calls(lambda: evaluate(sub, images[0], labels[0]),
+                          SWIN_CALLS)
+    _finite(em, "swin subnet eval step")
+    rates["subnet eval"] = batch / dt
+    add(by_body(A))
+    log(f"swin lifecycle on {card}, batch {batch}, bf16: search step "
+        f"{rates['search']:.2f} img/s over {SWIN_CALLS} calls after one "
+        f"warm-up (loss {m['loss_total']:.4f}, searched "
+        f"{m['searched_gflops']:.3f} of {float(total):.3f} GFLOPs, MFU "
+        f"{mfu:.4f}); forced compress {ms:.1f} ms ({len(report.events)} "
+        f"events); postsearch {rates['postsearch']:.2f} img/s over "
+        f"{SWIN_CALLS} calls (loss "
+        f"{pm['loss_total']:.4f}); export: stage_dims {meta['stage_dims']}, "
+        f"mlp {[b['mlp_hidden'] for b in meta['blocks']]}; fp32 gated vs "
+        f"fused {d_fused:.3e}, vs sliced {d_sliced:.3e} (tol "
+        f"{TOL_LOGITS:g}); subnet train {rates['subnet train']:.2f} img/s "
+        f"(loss {tm['loss']:.4f}), eval {rates['subnet eval']:.2f} img/s")
+    del state, box, fstate, fbox, sub, train, evaluate, step, post
+    torch.cuda.empty_cache()
+
+    # (c) the planned search step: graph replays against eager
+    bundle, state, _, _, _ = B.build_swin_step("swin_tiny", batch, seed=1)
+    pstep, _ = make_planned_swin_search_step(
+        bundle.space, bundle.cfg, scfg, tx, phase="search",
+        steps_per_epoch=9, device="cuda")
+    calls, worst = graph_vs_eager("swin search step", pstep, state, batch,
+                                  True)
+    times = B.time_planned(calls, SWIN_CALLS, rounds=2)
+    log(f"swin planned search step on {card}, batch {batch}: img/s graph "
+        f"{[round(batch / t, 2) for t in times['graph']]}, eager "
+        f"{[round(batch / t, 2) for t in times['eager']]}")
+    del state, calls, pstep
+    torch.cuda.empty_cache()
+    add(by_body(A))
+
+    # (d) the CLIs
+    sdir = os.path.join(root, "swin_search")
+    data = ["--data-set", "SYNTHETIC", "--synthetic-size", str(SWIN_IMAGES),
+            "--batch-size", str(batch)]
+    _, text, counts, dt = run_cli(A, search_swin, data + [
+        "--model", SWIN_MODEL, "--epochs", "1", "--embed_search",
+        "--cache-device", "--planned-epoch", "--force-finish",
+        "--export-finetune-epochs", "1", "--output_dir", sdir])
+    add(counts)
+    for name in ("running_ckpt", "best", "model_exported", "model_finetuned",
+                 "log.txt"):
+        if not os.path.exists(os.path.join(sdir, name)):
+            raise AssertionError(f"cli.search_swin wrote no {name}")
+    graphs = _graph_lines(text)
+    if len(graphs) != 2 or any(c != 1 for c, _, _ in graphs):
+        raise AssertionError(f"cli.search_swin: graph lines {graphs}")
+    meta = ckpt.latest_meta(os.path.join(sdir, "model_exported"))
+    log(f"cli.search_swin on {card} ({SWIN_IMAGES} images, batch {batch}, "
+        f"planned): {dt:.1f} s; epochs (epoch, img/s, feed, dispatch, "
+        f"readback, compress s) {_epochs(text)}; graphs {graphs}; exported "
+        f"stage_dims {meta['stage_dims']}, acc1 {meta['acc1']:.2f}")
+    for part in ("best", "model_exported"):
+        stats, _, counts, dt = run_cli(A, eval_cli, data + [
+            "--checkpoint", os.path.join(sdir, part)])
+        add(counts)
+        if not all(math.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"cli.eval of swin {part}: {stats}")
+        log(f"cli.eval swin {part}: {stats} in {dt:.1f} s")
+    ddir = os.path.join(root, "swin_dense")
+    (_, best), text, counts, dt = run_cli(A, train_swin_dense, data + [
+        "--model", "swin_tiny_patch4_window7_224", "--epochs", "1",
+        "--eval-every", "1", "--cache-device", "--planned-epoch",
+        "--output_dir", ddir])
+    add(counts)
+    if not os.path.exists(os.path.join(ddir, "model_finetuned", "meta.json")):
+        raise AssertionError("cli.train_swin_dense wrote no model_finetuned")
+    log(f"cli.train_swin_dense on {card} (1 epoch, planned): {dt:.1f} s; "
+        f"epochs {_epochs(text)}; graphs {_graph_lines(text)}")
+    del best
+    torch.cuda.empty_cache()
+
+    # (e) the committed TPU searches, exported on the card
+    here = os.path.dirname(os.path.abspath(__file__))
+    for run in SWIN_RUNS:
+        bundle = create_model(SWIN_MODEL, device="cuda", embed_search=True)
+        params, alphas, arch = bundle.init(0)
+        ckpt.load_checkpoint(os.path.join(here, run, "best"), alphas=alphas,
+                             arch=arch)
+        passes = 0
+        while not arch.all_finished and passes < 20:
+            compress(params, alphas, arch, None, bundle.space, thresh=1.0)
+            passes += 1
+        dense, dcfg, meta = export_swin_subnet(params, arch, bundle.space,
+                                               bundle.cfg)
+        want = ckpt.latest_meta(os.path.join(here, run, "model_exported"))
+        if (meta["stage_dims"], meta["blocks"]) != (want["stage_dims"],
+                                                    want["blocks"]):
+            raise AssertionError(f"{run}: exported {meta}, committed "
+                                 f"{want['stage_dims']} {want['blocks']}")
+        with torch.no_grad():
+            out = swin_forward(dense, images[0, :8], dcfg)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{run}: subnet logits not finite")
+        log(f"tpu swin search {run}: {passes} compress passes to finish; "
+            f"exported stage_dims {meta['stage_dims']}, mlp "
+            f"{[b['mlp_hidden'] for b in meta['blocks']]}, equal to its "
+            "committed model_exported/meta.json")
+        del params, alphas, dense
+    add(by_body(A))
+    if any(totals.values()):
+        raise AssertionError(f"swin: attention kernels launched {totals}; "
+                             "its window attention is plain PyTorch")
+    log(f"swin: attention launches over the phase {totals} (none expected)")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1933,6 +2214,7 @@ def main():
         at384 = timed("8", run_384, A, smi, root)
         planned = timed("9", run_planned, A, smi, root)
         vit, vit_fp32 = timed("10", run_vit_family, A, smi, root)
+        swin = timed("11", run_swin, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"seconds by phase: {json.dumps(seconds)}")
@@ -1951,7 +2233,7 @@ def main():
                       launches_lifecycle=lifecycle[name],
                       launches_cli=cli[name], launches_384=at384[name],
                       launches_planned=planned[name],
-                      launches_vit=vit[name])
+                      launches_vit=vit[name], launches_swin=swin[name])
         # the streaming body's times are at 577 tokens; the general body's
         # in fp32 at 197 tokens (its 577-token times stand beside them)
         timed = stream_fields[name] if name.endswith("_streaming") \

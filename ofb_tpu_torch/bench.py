@@ -38,6 +38,18 @@ decode on this thread, the loader's first batch and its steady ms a batch
 (unpinned, and pinned by the DataLoader's thread), and a batch's
 `pin_memory()` on this thread.
 
+`--model swin_tiny | swin_small | swin_base` runs the same phases on the
+searchable Swin with per-stage widths (`embed_search`), bf16, 224 px:
+the search step, beside the dense Swin's supervised step at the same
+batch (its img/s, MFU and the search's overhead over it; --no-dense skips
+it), the postsearch step, and the exported subnet's train (the search
+CLI's export finetune: cosine AdamW) and eval steps; --planned as for
+DeiT. With --profile N it also prints the window attention's share of
+the traced steps' device kernel time: the kernels under its profiler
+range (`models/swin.py:WINDOW_ATTENTION_RANGE`) and those of the backward
+nodes its ops created, in the same trace. Swin's window attention is
+plain PyTorch: no attention kernel of the port runs.
+
 MFU counts 6 x the model's forward MACs per image for a training step
 (backward ~ 2 x forward, 2 flops a MAC) and 2 x for eval, against the H100
 SXM dense bf16 peak of 989 TFLOP/s; for the supernet the MACs are the
@@ -63,7 +75,11 @@ import time
 
 import torch
 
+from .models.swin import WINDOW_ATTENTION_RANGE
+
 H100_BF16_PEAK = 989e12
+# the port's profiler ranges: their device-side spans are not kernels
+RANGES = (WINDOW_ATTENTION_RANGE,)
 
 
 def card() -> str:
@@ -153,7 +169,8 @@ def _sync(device):
 
 def force_convergence(state, space):
     """Craft the alphas (+8 on one cell of every module, -8 elsewhere, in
-    place) so that one `compress` pass converges the whole search, and run
+    place; a Swin's stage widths at three quarters of their grid) so that
+    one `compress` pass converges the whole search, and run
     that pass and then one more, which finds nothing to do. Returns
     (report, ms of the converging pass, ms of the idle pass), host time
     with the device drained before and after."""
@@ -172,6 +189,8 @@ def force_convergence(state, space):
         kh, kc = bs.attn.num_cells
         onehot(blk.attn, (min(h, kh - 1), min(c, kc - 1)))
         onehot(blk.mlp, min(m, bs.mlp.num_cells - 1))
+    for e in getattr(alphas, "stage_embeds", ()):     # a Swin's widths
+        onehot(e, 3 * e.numel() // 4)
     dev = alphas.embed.device
     times, report = [], None
     for _ in range(2):
@@ -250,7 +269,7 @@ def build_subnet_steps(bundle, state, batch: int, *, device="cuda",
 
 def profile_steps(call, n: int, top: int = 25):
     """Trace n calls of `call()` (one step each); print device time by
-    kernel and the busy share."""
+    kernel and the busy share; return the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -263,7 +282,8 @@ def profile_steps(call, n: int, top: int = 25):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.key, e.device_time_total, e.count)
             for e in prof.key_averages() if e.device_time_total > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in RANGES]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     print(f"profile: {n} steps, wall {wall_us / n / 1e3:.2f} ms/step, "
@@ -277,6 +297,45 @@ def profile_steps(call, n: int, top: int = 25):
     for key, t, c in rows[:top]:
         print(f"  {t / n / 1e3:9.3f} ms/step {100 * t / busy:5.1f}%  "
               f"{c // n:5d}/step  {key[:110]}", file=sys.stderr)
+    return prof
+
+
+def kernel_us(prof) -> float:
+    """Device time (us) of every kernel in a trace, the device-side spans
+    of the profiler ranges left out."""
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in RANGES)
+
+
+def range_events(prof, name: str):
+    """The events of a trace inside the profiler range `name` and the
+    backward nodes that the range's ops created (matched by autograd
+    sequence number and forward thread): (ranges, backward nodes)."""
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [e for e in prof.events()
+              if e.name == name and e.device_type == cpu]
+    made = set()
+    for e in ranges:
+        stack = list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            if c.sequence_nr >= 0:
+                made.add((c.thread, c.sequence_nr))
+            stack.extend(c.cpu_children)
+    nodes = [e for e in prof.events()
+             if e.name.startswith("autograd::engine::evaluate_function")
+             and (e.fwd_thread, e.sequence_nr) in made]
+    return ranges, nodes
+
+
+def range_us(prof, name: str):
+    """Device time (us) in a trace of the kernels launched inside the
+    profiler range `name` (its forward) and by the backward nodes its ops
+    created: (forward, backward)."""
+    ranges, nodes = range_events(prof, name)
+    return (sum(e.device_time_total for e in ranges),
+            sum(e.device_time_total for e in nodes))
 
 
 def time_calls(call, steps: int, warmup: int = 3) -> float:
@@ -395,10 +454,201 @@ def feed_times(batch: int, workers: int, steps: int):
     return {k: round(v, 3) for k, v in out.items()}
 
 
+# ---------------------------------------------------------------------------
+# The Swin family (`--model swin_tiny | swin_small | swin_base`)
+# ---------------------------------------------------------------------------
+
+def build_swin_step(model: str, batch: int, *, device="cuda", seed: int = 0):
+    """(bundle, state, step, images, labels) of `model`'s Swin search step
+    with per-stage widths (`embed_search`) at `batch` images, bf16, random
+    weights and images from `seed`."""
+    from .core.optim import named_leaves
+    from .core.steps import TrainState
+    from .core.swin_steps import make_swin_search_step
+    from .models.registry import create_model
+
+    bundle = create_model(f"{model}_patch4_window7_224_mim", device=device,
+                          embed_search=True)
+    params, alphas, arch = bundle.init(seed)
+    scfg, tx = search_config(batch)
+    state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
+                       opt_state=tx.init(named_leaves(params, alphas)))
+    step = make_swin_search_step(bundle.space, bundle.cfg, scfg, tx,
+                                 compute_dtype=torch.bfloat16, device=device)
+    images, labels = random_batch(bundle.cfg, batch, bundle.device, seed)
+    return bundle, state, step, images, labels
+
+
+def build_swin_subnet_steps(bundle, state, batch: int, *, device="cuda",
+                            planned=False):
+    """Export the converged Swin supernet and build the subnet's finetune
+    stage (the search CLI's export finetune: cosine AdamW, weight decay
+    0.05): (dense, cfg, meta, train state, train step, eval step); with
+    `planned` the train step is the planned one."""
+    from .config import ScheduleConfig
+    from .core.optim import adamw, cosine_schedule
+    from .core.steps import TrainState
+    from .core.swin_steps import (make_planned_swin_train_step,
+                                  make_swin_eval_step_dense,
+                                  make_swin_train_step_dense)
+    from .models.swin_search import export_swin_subnet
+
+    dense, dcfg, meta = export_swin_subnet(state.params, state.arch,
+                                           bundle.space, bundle.cfg)
+    tx = adamw(cosine_schedule(2.5e-4 * batch / 256, ScheduleConfig(
+        warmup_lr=1e-6, min_lr=1e-6, warmup_epochs=5), 100000, 1000),
+        weight_decay=0.05)
+    fstate = TrainState(step=0, params=dense, alphas=None, arch=None,
+                        opt_state=tx.init(dict(dense.named_parameters())))
+    make = make_planned_swin_train_step if planned \
+        else make_swin_train_step_dense
+    train = make(dcfg, tx, compute_dtype=torch.bfloat16, device=device)
+    evaluate = make_swin_eval_step_dense(dcfg, compute_dtype=torch.bfloat16,
+                                         device=device)
+    return dense, dcfg, meta, fstate, train, evaluate
+
+
+def bench_swin(args):
+    """The Swin family's phases (see `main`): one JSON line, and with
+    --profile N the step's kernel breakdown and the window attention's
+    share of the step's kernel time on stderr."""
+    from .core.swin_steps import (make_planned_swin_search_step,
+                                  make_swin_search_step,
+                                  make_swin_train_step_dense)
+    from .models.swin import Swin, swin_dense_flops
+    from .models.swin_search import swin_model_flops
+
+    batch = args.batch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bundle, state, step, images, labels = build_swin_step(args.model, batch)
+    cfg = bundle.cfg
+    box = {"state": state}
+    extra = {}
+    passes = 6.0
+    with torch.no_grad():
+        gflops = float(swin_model_flops(state.alphas, state.arch,
+                                        bundle.space, cfg)[0])
+
+    def call():
+        box["state"], m = step(box["state"], images, labels, gen)
+        return m["loss_total"]
+
+    scfg, tx = search_config(batch)
+    if args.phase != "search":
+        call()
+        report, ms, idle_ms = force_convergence(state, bundle.space)
+        if not report.finish_search:
+            raise RuntimeError(f"the search did not converge: {report.events}")
+        extra = {"compress_ms": round(ms, 3),
+                 "compress_idle_ms": round(idle_ms, 3),
+                 "compress_events": len(report.events)}
+    if args.phase == "postsearch":
+        post = make_swin_search_step(bundle.space, cfg, scfg, tx,
+                                     phase="postsearch",
+                                     compute_dtype=torch.bfloat16,
+                                     device="cuda")
+
+        def call():
+            box["state"], m = post(box["state"], images, labels, gen)
+            return m["loss_total"]
+    elif args.phase in ("finetune", "eval"):
+        with torch.no_grad():
+            gflops = float(swin_model_flops(state.alphas, state.arch,
+                                            bundle.space, cfg)[1])
+        dense, dcfg, meta, fstate, train, evaluate = build_swin_subnet_steps(
+            bundle, state, batch, planned=args.planned)
+        box["state"] = fstate
+        extra.update(stage_dims=meta["stage_dims"],
+                     mlp_hidden=[b["mlp_hidden"] for b in meta["blocks"]])
+        if args.phase == "finetune":
+            def call():
+                box["state"], m = train(box["state"], images, labels, gen)
+                return m["loss"]
+        else:
+            passes = 2.0
+
+            def call():
+                return evaluate(dense, images[0], labels[0])["loss_sum"]
+
+    if args.planned:
+        rows = 3 * args.steps + 8
+        if args.phase == "finetune":
+            pstep = train
+        else:
+            pstep, _ = make_planned_swin_search_step(
+                bundle.space, cfg, scfg, tx, phase=args.phase,
+                steps_per_epoch=rows, device="cuda")
+        calls = PlannedCalls(pstep, box, batch, rows,
+                             search=args.phase != "finetune")
+        times = time_planned(calls, args.steps)
+        dt = min(times["graph"])
+        extra.update(
+            planned=True, captures=pstep.captures,
+            ms_per_step_eager=[round(t * 1e3, 3) for t in times["eager"]],
+            ms_per_step_graph=[round(t * 1e3, 3) for t in times["graph"]],
+            img_s_eager=[round(batch / t, 2) for t in times["eager"]])
+        call = calls.graph
+    else:
+        dt = time_calls(call, args.steps)
+    img_s = batch / dt
+    if args.phase == "search" and not args.planned and not args.no_dense:
+        # the dense Swin's supervised step at the same batch: what the
+        # search machinery costs on top of it
+        from .core.optim import adamw
+        from .core.steps import TrainState
+        dense = Swin(cfg, generator=torch.Generator().manual_seed(2)).cuda()
+        dtx = adamw(lambda count: torch.full_like(
+            torch.as_tensor(count, dtype=torch.float32), 1e-4),
+            weight_decay=1e-4)
+        dbox = {"state": TrainState(step=0, params=dense, alphas=None,
+                                    arch=None, opt_state=dtx.init(
+                                        dict(dense.named_parameters())))}
+        dstep = make_swin_train_step_dense(cfg, dtx,
+                                           compute_dtype=torch.bfloat16,
+                                           device="cuda")
+
+        def dense_call():
+            dbox["state"], m = dstep(dbox["state"], images, labels, gen)
+            return m["loss"]
+        dense_img_s = batch / time_calls(dense_call, args.steps)
+        extra.update(dense_img_s=round(dense_img_s, 2),
+                     dense_mfu=round(dense_img_s * 6.0 * swin_dense_flops(
+                         cfg) * 1e9 / H100_BF16_PEAK, 4),
+                     search_overhead_vs_dense=round(dense_img_s / img_s - 1.0,
+                                                    4))
+        del dense, dbox
+    kind = {"search": "ofb_search_step", "postsearch": "ofb_postsearch_step",
+            "finetune": "subnet_train_step", "eval": "subnet_eval_step"}
+    print(json.dumps({
+        "metric": f"{args.model}_{kind[args.phase]}_throughput",
+        "value": round(img_s, 2), "unit": "img/s", "batch": batch,
+        "ms_per_step": round(dt * 1e3, 3),
+        "mfu": round(img_s * passes * gflops * 1e9 / H100_BF16_PEAK, 4),
+        "gflops_per_image": round(gflops, 4),
+        "peak_tflops": H100_BF16_PEAK / 1e12, **extra,
+        "device": card(), "count": torch.cuda.device_count()}), flush=True)
+    if args.profile:
+        n = args.profile
+        prof = profile_steps(call, n)
+        busy = kernel_us(prof)
+        fwd, bwd = range_us(prof, WINDOW_ATTENTION_RANGE)
+        if fwd == 0.0:
+            print("  window attention: its range is not in the trace (a "
+                  "graph replay runs no ops)", file=sys.stderr)
+        else:
+            print(f"  window attention in the traced steps (range "
+                  f"{WINDOW_ATTENTION_RANGE}: forward {fwd / n / 1e3:.3f}, "
+                  f"its backward nodes {bwd / n / 1e3:.3f} ms a step): "
+                  f"{(fwd + bwd) / n / 1e3:.3f} of {busy / n / 1e3:.3f} ms "
+                  f"device kernel time a step, "
+                  f"{100 * (fwd + bwd) / busy:.1f}%", file=sys.stderr)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="deit_small",
-                    choices=["deit_tiny", "deit_small", "deit_base"])
+                    choices=["deit_tiny", "deit_small", "deit_base",
+                             "swin_tiny", "swin_small", "swin_base"])
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--phase", default="search",
@@ -416,6 +666,8 @@ def main():
                          "graph in turns")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps and print a breakdown")
+    ap.add_argument("--no-dense", action="store_true",
+                    help="Swin search: skip the dense companion step")
     args = ap.parse_args()
     if args.planned and args.phase not in ("search", "postsearch",
                                            "finetune"):
@@ -439,6 +691,11 @@ def main():
         if args.profile:
             profile_steps(call, args.profile)
         return
+
+    if args.model.startswith("swin"):
+        if args.subnet or args.input_size != 224:
+            ap.error("--subnet and --input-size are for the DeiT models")
+        return bench_swin(args)
 
     from .models.vit import dense_flops
     from .ops.flops import model_flops

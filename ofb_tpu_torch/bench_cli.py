@@ -29,9 +29,21 @@ over wall time, the feed, compress passes and readbacks included) and its
 split into feed / dispatch / readback / compress seconds, the compress
 passes' host ms, the step rates, and the card's name and power limit.
 
-Usage: python -m ofb_tpu_torch.bench_cli [--batch 64] [--epochs 2]
-       [--images 2048] [--workers 4] [--cache-device | --planned-epoch]
-       [--out DIR]
+With --model swin_tiny it runs the Swin family's CLIs instead, on Swin-T
+with per-stage widths (`embed_search`), bf16, on --images images:
+
+  search     `cli.search_swin`, --epochs search epochs (compress passes
+             at the CLI's 0.2), then --force-finish, the export and
+             --epochs epochs of the export finetune (cosine AdamW);
+  dense      `cli.train_swin_dense`, --epochs epochs of the dense Swin-T;
+  step       `bench --model swin_tiny --phase search` (with the dense
+             companion step when classic) and `--phase finetune` (the
+             subnet that bench's forced convergence carves out; the
+             export of a real search depends on its scores).
+
+Usage: python -m ofb_tpu_torch.bench_cli [--model deit_small | swin_tiny]
+       [--batch 64] [--epochs 2] [--images 2048] [--workers 4]
+       [--cache-device | --planned-epoch] [--out DIR]
 """
 
 from __future__ import annotations
@@ -53,8 +65,62 @@ def step_rate(phase, batch, *extra):
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def _compress_ms(text):
+    return [round(float(x) * 1e3, 3)
+            for x in re.findall(r"compress pass ([\d.]+)s", text)]
+
+
+def _step_rates(result, batch, planned, model, phases):
+    """bench.py's step rates of `phases` ((name, extra args)) into
+    `result`."""
+    import torch
+    torch.cuda.empty_cache()
+    for phase, extra in phases:
+        r = step_rate(phase, batch, "--model", model, *extra,
+                      *(("--planned",) if planned else ()))
+        result[f"{phase}_step_img_s"] = r["value"]
+        result[f"{phase}_step_ms"] = r["ms_per_step"]
+        if planned:
+            result[f"{phase}_step_ms_eager"] = r["ms_per_step_eager"]
+        elif "dense_img_s" in r:
+            result["dense_step_img_s"] = r["dense_img_s"]
+
+
+def swin(args, root, cached, planned):
+    """The Swin CLIs (see the module's docstring): their epochs and the
+    step rates, as one dict."""
+    from .cli import search_swin, train_swin_dense
+    from .cli.common import run_main
+    from .core.engine import epoch_lines
+
+    data = ["--data-set", "SYNTHETIC", "--synthetic-size", str(args.images),
+            "--batch-size", str(args.batch), "--num_workers",
+            str(args.workers)]
+    e = str(args.epochs)
+    _, text = run_main(search_swin, data + [
+        "--epochs", e, "--embed_search", "--force-finish",
+        "--export-finetune-epochs", e, "--output_dir",
+        os.path.join(root, "swin_search")] + cached + planned)
+    lines = epoch_lines(text)
+    result = {"search_epochs": lines[:args.epochs],
+              "finetune_epochs": lines[args.epochs:],
+              "graph_lines": re.findall(r"planned step: .*", text),
+              "compress_ms": _compress_ms(text)}
+    _, text = run_main(train_swin_dense, data + [
+        "--model", "swin_tiny_patch4_window7_224", "--epochs", e,
+        "--eval-every", "1", "--output_dir",
+        os.path.join(root, "swin_dense")] + cached + planned)
+    result["dense_epochs"] = epoch_lines(text)
+    result["dense_graph_lines"] = re.findall(r"planned step: .*", text)
+    _step_rates(result, args.batch, bool(planned), "swin_tiny",
+                (("search", ()), ("finetune", ())))
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="deit_small",
+                    choices=["deit_small", "swin_tiny"])
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--images", type=int, default=2048)
@@ -68,13 +134,26 @@ def main():
 
     import torch
     from .bench import card
-    from .cli import export, finetune, search
-    from .cli.common import run_main
-    from .core.engine import epoch_lines
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_cli needs a CUDA device")
     root = args.out or tempfile.mkdtemp(prefix="ofb_bench_cli_")
+    result = {"model": args.model, "batch": args.batch,
+              "images": args.images, "workers": args.workers,
+              "cache_device": bool(cached), "planned_epoch": bool(planned)}
+    run = swin if args.model == "swin_tiny" else deit
+    result.update(run(args, root, cached, planned))
+    result["device"] = card()
+    print(json.dumps(result), flush=True)
+
+
+def deit(args, root, cached, planned):
+    """The DeiT-S CLIs (see the module's docstring): their epochs and the
+    step rates, as one dict."""
+    from .cli import export, finetune, search
+    from .cli.common import run_main
+    from .core.engine import epoch_lines
+
     sdir = os.path.join(root, "search")
     xdir = os.path.join(root, "exported")
     b = str(args.batch)
@@ -84,13 +163,9 @@ def main():
         str(args.epochs), "--compress-thresh", "1.0", "--mixup", "0.8",
         "--cutmix", "1.0", "--num_workers", str(args.workers),
         "--output_dir", sdir] + cached + planned)
-    result = {"batch": args.batch, "images": args.images,
-              "workers": args.workers, "cache_device": bool(cached),
-              "planned_epoch": bool(planned),
-              "search_epochs": epoch_lines(text),
+    result = {"search_epochs": epoch_lines(text),
               "graph_lines": re.findall(r"planned step: .*", text),
-              "compress_ms": [round(float(x) * 1e3, 3) for x in re.findall(
-                  r"compress pass ([\d.]+)s", text)]}
+              "compress_ms": _compress_ms(text)}
     (_, dcfg), _ = run_main(export, ["--checkpoint",
                                      os.path.join(sdir, "best"), "--out",
                                      xdir])
@@ -106,16 +181,9 @@ def main():
             "--num_workers", str(args.workers), "--output_dir",
             os.path.join(root, name)] + extra)
         result[name] = epoch_lines(text)
-    torch.cuda.empty_cache()
-    for phase, extra in (("search", ()), ("finetune", ("--subnet", xdir))):
-        r = step_rate(phase, args.batch, *extra,
-                      *(("--planned",) if planned else ()))
-        result[f"{phase}_step_img_s"] = r["value"]
-        result[f"{phase}_step_ms"] = r["ms_per_step"]
-        if planned:
-            result[f"{phase}_step_ms_eager"] = r["ms_per_step_eager"]
-    result["device"] = card()
-    print(json.dumps(result), flush=True)
+    _step_rates(result, args.batch, bool(planned), "deit_small",
+                (("search", ()), ("finetune", ("--subnet", xdir))))
+    return result
 
 
 if __name__ == "__main__":

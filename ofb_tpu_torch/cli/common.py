@@ -1,5 +1,6 @@
-"""Pieces the port's CLIs share: the tiny test geometry, rebuilding a
-supernet from a search run's recorded args, the per-epoch random source,
+"""Pieces the port's CLIs share: the tiny test geometries (ViT and Swin),
+rebuilding a supernet from a search run's recorded args, the per-epoch
+random source,
 the refusal of a flag whose piece is not ported yet (--world_size > 1),
 and a CLI run in this process with its printed text kept."""
 
@@ -50,6 +51,38 @@ def supernet_bundle(saved_args: Dict[str, Any], model: str, num_classes: int,
                                                      (32, 2, 2))))
     return create_model(saved_args.get("model", model), device=device,
                         num_classes=num_classes)
+
+
+def swin_tiny_cfg(num_classes: int, drop_path: float = 0.1):
+    """The Swin CLIs' --tiny-test geometry (the JAX CLIs'): 32x32 images,
+    patch 2, D 24, one block in each of two stages, heads (2, 4),
+    window 4."""
+    from ..models.swin import SwinCfg
+    return SwinCfg(img_size=32, patch_size=2, num_classes=num_classes,
+                   embed_dim=24, depths=(1, 1), num_heads=(2, 4), window=4,
+                   mlp_ratio=2.0, drop_path_rate=drop_path)
+
+
+def swin_supernet_bundle(saved_args: Dict[str, Any], model: str,
+                         num_classes: int, device, *,
+                         embed_search: bool = False) -> ModelBundle:
+    """The Swin supernet a search run trained, from the args its
+    checkpoint recorded (the tiny geometry or a registry name; without
+    recorded args, `model` and `embed_search`)."""
+    from ..models.swin_search import build_swin_space
+    flags = dict(attn_search=saved_args.get("attn_search", True),
+                 mlp_search=saved_args.get("mlp_search", True),
+                 embed_search=saved_args.get("embed_search", embed_search))
+    drop_path = saved_args.get("drop_path", 0.1)
+    if saved_args.get("tiny_test"):
+        cfg = swin_tiny_cfg(num_classes, drop_path)
+        return ModelBundle(name="swin_tiny_test", cfg=cfg,
+                           space=build_swin_space(cfg, **flags),
+                           device=device, kind="swin_mim")
+    return create_model(saved_args.get("model", model), device=device,
+                        num_classes=num_classes,
+                        img_size=saved_args.get("input_size", 224),
+                        drop_path_rate=drop_path, **flags)
 
 
 def classes_from_args(saved_args: Dict[str, Any]) -> int:

@@ -3,8 +3,13 @@ validation set (the flags of scripts/eval.py).
 
 An exported checkpoint (`exported: True`, its `model_cfg` in the meta)
 runs the dense eval step, its EMA weights with --use-ema; a searched
-supernet checkpoint runs the gated eval step (soft accuracy). Either may
-be the port's or the JAX package's; a Swin checkpoint raises.
+supernet checkpoint runs the gated eval step (soft accuracy). A Swin
+checkpoint (`family: "swin"`) takes the Swin steps: an exported subnet or
+a dense Swin (`cli.train_swin_dense`) through the plain forward with the
+widths its meta records, a supernet's best/ through the gated one (its
+model and search flags from the recorded args; a JAX package directory
+without them takes --model and embed search when its alphas hold
+per-stage widths). Any of these may be the port's or the JAX package's.
 
   python -m ofb_tpu_torch.cli.eval --checkpoint runs/exp/best \\
       --data-set IMNET --data-path /data/imagenet [--device cpu]
@@ -42,11 +47,13 @@ def main(args):
     from ..core import checkpoint as ckpt
     from ..core.engine import evaluate
     from ..core.steps import make_eval_step, make_eval_step_dense
+    from ..core.swin_steps import (make_swin_eval_step,
+                                   make_swin_eval_step_dense)
     from ..data.datasets import build_dataset
     from ..data.pipeline import device_feed, make_epoch_loader
     from ..device import resolve_device
     from ..models.vit import ModelCfg, ViT
-    from .common import supernet_bundle
+    from .common import supernet_bundle, swin_supernet_bundle
 
     dev = resolve_device(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
@@ -54,9 +61,7 @@ def main(args):
     meta = ckpt.latest_meta(args.checkpoint)
     if meta is None:
         raise SystemExit(f"no checkpoint at {args.checkpoint}")
-    if meta.get("family") == "swin":
-        raise NotImplementedError("Swin checkpoints need the Swin family, "
-                                  "not ported yet: ROADMAP Queue 1 item 16")
+    swin = meta.get("family") == "swin"
 
     # the restored model's img_size sets the eval input size
     input_size = args.input_size
@@ -71,7 +76,24 @@ def main(args):
                       synthetic_size=args.synthetic_size)
     ds_val, nb_classes = build_dataset(False, dcfg, staging=256)
 
-    if meta.get("exported"):
+    if swin and meta.get("exported"):
+        params, cfg = ckpt.swin_from_meta(meta, dev)
+        ckpt.load_checkpoint(args.checkpoint, params=params)
+        step = make_swin_eval_step_dense(cfg, compute_dtype=compute,
+                                         device=dev)
+        state_args = (params,)
+    elif swin:
+        bundle = swin_supernet_bundle(
+            meta.get("args", {}), args.model, nb_classes, dev,
+            embed_search=_has_stage_embeds(args.checkpoint, meta))
+        input_size = bundle.cfg.img_size
+        params, alphas, arch = bundle.init(0)
+        ckpt.load_checkpoint(args.checkpoint, params=params, alphas=alphas,
+                             arch=arch)
+        step = make_swin_eval_step(bundle.space, bundle.cfg,
+                                   compute_dtype=compute, device=dev)
+        state_args = (params, alphas, arch)
+    elif meta.get("exported"):
         cfg = ckpt.model_cfg_from_meta(meta["model_cfg"], ModelCfg)
         # the weights come from the checkpoint: built on the device,
         # unseeded
@@ -101,6 +123,18 @@ def main(args):
     stats = evaluate(step, feed, *state_args)
     print(stats)
     return stats
+
+
+def _has_stage_embeds(path: str, meta) -> bool:
+    """Whether a Swin supernet checkpoint's alphas hold per-stage residual
+    widths (read from a JAX package directory, whose meta records no
+    args)."""
+    from ..core import checkpoint as ckpt
+    if "args" in meta or not ckpt.is_jax_checkpoint(path, meta):
+        return False
+    import os
+    from ..core.msgpack import read_tree
+    return "stage_embeds" in read_tree(os.path.join(path, "alphas.msgpack"))
 
 
 if __name__ == "__main__":

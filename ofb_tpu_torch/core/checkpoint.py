@@ -12,6 +12,11 @@ file per part plus `meta.json`:
 Every file is written to a temporary name and moved into place with
 `os.replace`.
 
+A Swin checkpoint's meta says `family: "swin"`; an exported or dense one
+holds its `SwinCfg` as `model_cfg` and, for a subnet, each block's
+`mlp_hidden` (`blocks`) and the stages' residual widths (`stage_dims`),
+from which `swin_from_meta` builds the module to restore into.
+
 The JAX package writes `<part>.msgpack` (flax's msgpack) with the same
 meta.json. `load_checkpoint` reads such a directory too: `core/msgpack.py`
 decodes the parts and `models/from_jax.py` carries them into the port's
@@ -304,3 +309,12 @@ def model_cfg_from_meta(cfg_dict: Dict[str, Any], cfg_cls):
     known = {f.name for f in dataclasses.fields(cfg_cls)}
     return cfg_cls(**{k: conv(v) for k, v in cfg_dict.items()
                       if k in known or k not in IGNORED_CFG_FIELDS})
+
+
+def swin_from_meta(meta: Dict[str, Any], device=None):
+    """(dense `Swin` with the widths of an exported subnet or a dense Swin
+    checkpoint's meta, its `SwinCfg`), unseeded on `device`, to restore
+    the checkpoint into; the JAX package's metas and the port's alike."""
+    from ..models.swin import Swin, SwinCfg, subnet_widths
+    cfg = model_cfg_from_meta(meta["model_cfg"], SwinCfg)
+    return Swin(cfg, device=device, **subnet_widths(meta)), cfg

@@ -19,8 +19,10 @@ read is a synchronisation) and only the small rewritten tensors go back,
 written in place under `no_grad`: the step and the optimizer state hold
 references to these very tensors by name, so none is replaced.
 
-The per-stage embed widths of hierarchical (Swin) models are not ported
-yet: a search space with `stage_embeds` raises.
+The per-stage residual widths of a Swin supernet (`stage_embeds`) take the
+1-D machinery of the ViT embed, with the score at
+`stages.<s>.embed_score`; a Swin block's scores sit under
+`stages.<s>.blocks.<b>`.
 """
 
 from __future__ import annotations
@@ -200,7 +202,8 @@ class _Module:
     """One searchable dimension of a pass: its tensors on the device and,
     once fetched, their host copies."""
     label: str                   # as the report's events name it
-    stem: str                    # alpha 'alphas.<stem>', score '<stem>.score'
+    alpha_name: str              # leaf names as in `optim.named_leaves`
+    score_name: Optional[str]
     kind: str                    # 'patch' | 'dim' | 'attn'
     space: Any
     alpha: torch.Tensor
@@ -208,15 +211,12 @@ class _Module:
     score: Optional[torch.Tensor] = None
     host: Optional[Dict[str, Any]] = None
 
-    @property
-    def score_name(self) -> str:
-        return "patch_embed.score" if self.stem == "embed" \
-            else self.stem + ".score"
-
     def device_tensors(self) -> List[torch.Tensor]:
         ts = [self.alpha, self.arch.switch, self.arch.finished]
         if self.kind != "patch":
-            ts += [self.arch.hard_mask, self.arch.w_p, self.score]
+            ts += [self.arch.hard_mask, self.arch.w_p]
+        if self.score is not None:
+            ts.append(self.score)
         return ts
 
     def take(self, host) -> None:
@@ -224,22 +224,44 @@ class _Module:
         self.host = dict(alpha=next(host), switch=next(host),
                          finished=bool(next(host)))
         if self.kind != "patch":
-            self.host.update(hard=next(host), w_p=float(next(host)),
-                             score=next(host))
+            self.host.update(hard=next(host), w_p=float(next(host)))
+        if self.score is not None:
+            self.host["score"] = next(host)
+
+
+def _block_params(params, i: int) -> Tuple[str, Any]:
+    """(name prefix, module) of the i-th block: `blocks.<i>` of a ViT,
+    `stages.<s>.blocks.<b>` of a Swin (blocks flat across the stages)."""
+    if not hasattr(params, "stages"):
+        return f"blocks.{i}", params.blocks[i]
+    for s, stage in enumerate(params.stages):
+        if i < len(stage.blocks):
+            return f"stages.{s}.blocks.{i}", stage.blocks[i]
+        i -= len(stage.blocks)
+    raise IndexError(i)
 
 
 def _modules(params, alphas, arch: ArchState, space: SearchSpace):
     """Every searchable dimension, in the order of a pass."""
-    yield _Module("patch", "patch", "patch", space.patch, alphas.patch,
-                  arch.patch)
-    yield _Module("embed", "embed", "dim", space.embed, alphas.embed,
-                  arch.embed, params.patch_embed.score)
+    yield _Module("patch", "alphas.patch", None, "patch", space.patch,
+                  alphas.patch, arch.patch)
+    score = getattr(params.patch_embed, "score", None)
+    yield _Module("embed", "alphas.embed", "patch_embed.score", "dim",
+                  space.embed, alphas.embed, arch.embed, score)
+    for s, ds in enumerate(space.stage_embeds):
+        yield _Module(f"stage{s}.embed", f"alphas.stage_embeds.{s}",
+                      f"stages.{s}.embed_score", "dim", ds,
+                      alphas.stage_embeds[s], arch.stage_embeds[s],
+                      params.stages[s].embed_score)
     for i, bs in enumerate(space.blocks):
-        blk, ba, al = params.blocks[i], arch.blocks[i], alphas.blocks[i]
-        yield _Module(f"block{i}.attn", f"blocks.{i}.attn", "attn", bs.attn,
-                      al.attn, ba.attn, blk.attn.score)
-        yield _Module(f"block{i}.mlp", f"blocks.{i}.mlp", "dim", bs.mlp,
-                      al.mlp, ba.mlp, blk.mlp.score)
+        pre, blk = _block_params(params, i)
+        ba, al = arch.blocks[i], alphas.blocks[i]
+        yield _Module(f"block{i}.attn", f"alphas.blocks.{i}.attn",
+                      pre + ".attn.score", "attn", bs.attn, al.attn, ba.attn,
+                      blk.attn.score)
+        yield _Module(f"block{i}.mlp", f"alphas.blocks.{i}.mlp",
+                      pre + ".mlp.score", "dim", bs.mlp, al.mlp, ba.mlp,
+                      blk.mlp.score)
 
 
 def compress(params, alphas, arch: ArchState, opt_state,
@@ -252,9 +274,6 @@ def compress(params, alphas, arch: ArchState, opt_state,
     Adam moments of the touched leaves; `opt_state` may be None). The
     decisions run on the host, on one bulk copy of the alphas, the arch
     state and the scores."""
-    if space.stage_embeds:
-        raise NotImplementedError(
-            "per-stage embed widths (Swin) are not ported yet")
     report = CompressReport()
     zero_names: List[str] = []
 
@@ -286,7 +305,7 @@ def compress(params, alphas, arch: ArchState, opt_state,
             switch, finished = upd["switch"], bool(upd["finished"])
             _put(m.alpha, upd["alpha"])
             _put(am.switch, switch)
-            zero_names.append("alphas." + m.stem)
+            zero_names.append(m.alpha_name)
             if m.kind == "patch":
                 _put(am.pruned_once, True)
             if "hard" in upd:

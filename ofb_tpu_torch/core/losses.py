@@ -130,11 +130,40 @@ def _score_norm(score, hard_mask, weight: float,
         dim=-1) * weight
 
 
+def group_loss(alpha, switch, score, hard_mask, weight: float, bd: int, *,
+               entropy: bool, var: bool, norm: bool) -> torch.Tensor:
+    """Sparsity loss of one module, or summed over a stack of modules
+    along `bd` leading dims: the divided cell loss plus, while more than
+    one cell is active, the weighted score norm."""
+    l = _cell_loss(alpha, switch, entropy=entropy, var=var,
+                   divide_var_by_n=True, batch_dims=bd)
+    if norm:
+        live = switch.flatten(bd).sum(dim=-1) > 1
+        l = l + torch.where(live, _score_norm(score, hard_mask, weight, bd),
+                            0.0)
+    return l.sum()
+
+
+def _block_groups(params, n_blocks: int):
+    """(block indices, block params) of each group of blocks that share one
+    shape: all blocks of a ViT, each stage's of a Swin."""
+    stages = getattr(params, "stages", None)
+    if stages is None:
+        return [(range(n_blocks), list(params.blocks))]
+    groups, i = [], 0
+    for stage in stages:
+        groups.append((range(i, i + len(stage.blocks)), list(stage.blocks)))
+        i += len(stage.blocks)
+    return groups
+
+
 def sparsity_losses(params, alphas, arch: ArchState, space: SearchSpace, *,
                     entropy: bool = True, var: bool = True, norm: bool = True
                     ) -> Dict[str, torch.Tensor]:
-    """Grouped sparsity losses: attn, mlp, patch, embed. The blocks' terms
-    are computed on stacked tensors (`stack_blocks`) and summed."""
+    """Grouped sparsity losses: attn, mlp, patch, embed. A Swin's per-stage
+    widths join the embed group. The blocks' terms are computed on stacked
+    tensors (`stack_blocks`), one stack for each group of same-shaped blocks
+    (a ViT's all, a Swin stage's), and summed."""
     zero = torch.zeros((), dtype=torch.float32, device=alphas.embed.device)
 
     # patch: entropy + undivided tan-variance, no score term
@@ -142,31 +171,36 @@ def sparsity_losses(params, alphas, arch: ArchState, space: SearchSpace, *,
                             var=True, divide_var_by_n=False)
 
     def group(alpha, switch, score, hard_mask, weight, bd):
-        l = _cell_loss(alpha, switch, entropy=entropy, var=var,
-                       divide_var_by_n=True, batch_dims=bd)
-        if norm:
-            live = switch.flatten(bd).sum(dim=-1) > 1
-            l = l + torch.where(live, _score_norm(score, hard_mask, weight,
-                                                  bd), 0.0)
-        return l.sum()
+        return group_loss(alpha, switch, score, hard_mask, weight, bd,
+                          entropy=entropy, var=var, norm=norm)
 
     loss_embed = zero
     if space.embed.searchable:
         loss_embed = group(alphas.embed, arch.embed.switch,
                            params.patch_embed.score, arch.embed.hard_mask,
                            1e-4, 0)
+    for s, ds in enumerate(space.stage_embeds):
+        if ds.searchable:
+            ea = arch.stage_embeds[s]
+            loss_embed = loss_embed + group(
+                alphas.stage_embeds[s], ea.switch,
+                params.stages[s].embed_score, ea.hard_mask, 1e-4, 0)
     loss_attn = loss_mlp = zero
-    b0 = space.blocks[0] if space.blocks else None
-    if b0 is not None and (b0.attn.searchable or b0.mlp.searchable):
-        bs = stack_blocks(alphas, arch)
+    for idx, blocks in _block_groups(params, len(space.blocks)):
+        b0 = space.blocks[idx[0]]
+        if not (b0.attn.searchable or b0.mlp.searchable):
+            continue
+        bs = stack_blocks(alphas, arch, idx)
         if b0.attn.searchable:
-            loss_attn = group(bs.attn_alpha, bs.attn_switch,
-                              torch.stack([b.attn.score for b in params.blocks]),
-                              bs.attn_hard, 4e-4, 1)
+            loss_attn = loss_attn + group(
+                bs.attn_alpha, bs.attn_switch,
+                torch.stack([b.attn.score for b in blocks]), bs.attn_hard,
+                4e-4, 1)
         if b0.mlp.searchable:
-            loss_mlp = group(bs.mlp_alpha, bs.mlp_switch,
-                             torch.stack([b.mlp.score for b in params.blocks]),
-                             bs.mlp_hard, 1e-4, 1)
+            loss_mlp = loss_mlp + group(
+                bs.mlp_alpha, bs.mlp_switch,
+                torch.stack([b.mlp.score for b in blocks]), bs.mlp_hard,
+                1e-4, 1)
     return {"attn": loss_attn, "mlp": loss_mlp, "patch": loss_patch,
             "embed": loss_embed}
 

@@ -414,6 +414,15 @@ def zero_adam_moments(opt_state: Any, predicate: Callable[[str], bool]):
     return opt_state
 
 
+def adamw(schedule: Schedule, *, weight_decay: float,
+          betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8
+          ) -> SearchOptimizer:
+    """optax.adamw: one family over every leaf, decayed alike, no clip."""
+    fam = OptimFamilyConfig(betas=betas, eps=eps, weight_decay=weight_decay)
+    return SearchOptimizer({"all": Family(fam, schedule, weight_decay)},
+                           None, 1, label_fn=lambda name, ndim: "all")
+
+
 def build_search_optimizer(
     cfg_param: OptimFamilyConfig, cfg_arch: OptimFamilyConfig,
     cfg_dec: OptimFamilyConfig, sched: ScheduleConfig, *,

@@ -87,6 +87,8 @@ def _finished_alpha_names(alphas: Alphas, arch: ArchState):
     weight decay from drifting it)."""
     yield "alphas.patch", arch.patch.finished
     yield "alphas.embed", arch.embed.finished
+    for s, d in enumerate(arch.stage_embeds):
+        yield f"alphas.stage_embeds.{s}", d.finished
     for i, b in enumerate(arch.blocks):
         yield f"alphas.blocks.{i}.attn", b.attn.finished
         yield f"alphas.blocks.{i}.mlp", b.mlp.finished

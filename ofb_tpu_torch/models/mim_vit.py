@@ -133,17 +133,21 @@ class BlockStack(NamedTuple):
     mlp_finished: torch.Tensor    # (G,)
 
 
-def stack_blocks(alphas: "Alphas", arch: ArchState) -> BlockStack:
-    a = [b.attn for b in arch.blocks]
-    m = [b.mlp for b in arch.blocks]
+def stack_blocks(alphas: "Alphas", arch: ArchState, idx=None) -> BlockStack:
+    """The blocks' tensors stacked, all blocks or those at `idx` (a Swin
+    stage's, whose blocks share one shape)."""
+    idx = range(len(arch.blocks)) if idx is None else idx
+    a = [arch.blocks[i].attn for i in idx]
+    m = [arch.blocks[i].mlp for i in idx]
+    al = [alphas.blocks[i] for i in idx]
     return BlockStack(
-        attn_alpha=torch.stack([b.attn for b in alphas.blocks]),
+        attn_alpha=torch.stack([b.attn for b in al]),
         attn_switch=torch.stack([x.switch for x in a]),
         attn_hard=torch.stack([x.hard_mask for x in a]),
         attn_w_p=torch.stack([x.w_p for x in a]),
         attn_finished=torch.stack([x.finished for x in a]),
         head_alive=torch.stack([x.head_alive for x in a]).float(),
-        mlp_alpha=torch.stack([b.mlp for b in alphas.blocks]),
+        mlp_alpha=torch.stack([b.mlp for b in al]),
         mlp_switch=torch.stack([x.switch for x in m]),
         mlp_hard=torch.stack([x.hard_mask for x in m]),
         mlp_w_p=torch.stack([x.w_p for x in m]),

@@ -5,21 +5,25 @@ Port of ofb_tpu/models/registry.py. `create_model` returns a
 the parameters (and, for a supernet, alphas and arch state). Registered:
 the DeiT supernets, the dense DeiT models (whose factories take the dims
 of an exported subnet as overrides) and the stock ViTs of the JAX package,
-its in21k models (tanh pre-logits), the MIIL models (no qkv bias) and the
-`vit_deit_*` aliases. The Swin family is not ported: its names raise
-NotImplementedError.
+its in21k models (tanh pre-logits), the MIIL models (no qkv bias), the
+`vit_deit_*` aliases and the Swin family: `swin_{tiny,small,base}_patch4_
+window7_224` (dense, kind 'swin') and the same names with `_mim` (the
+searchable Swin, kind 'swin_mim', whose factory takes the search flags,
+`embed_search` among them).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from ..device import resolve_device
 from .mim_vit import Alphas, MimViT
 from .search_space import ArchState, SearchSpace
+from .swin import Swin, SwinCfg
+from .swin_search import SwinAlphas, SwinSearch, build_swin_space
 from .vit import ModelCfg, ViT
 
 _REGISTRY: Dict[str, Callable[..., "ModelBundle"]] = {}
@@ -28,11 +32,12 @@ _REGISTRY: Dict[str, Callable[..., "ModelBundle"]] = {}
 @dataclass
 class ModelBundle:
     name: str
-    cfg: ModelCfg
+    cfg: Union[ModelCfg, SwinCfg]
     space: Optional[SearchSpace]
     device: torch.device
     mae: bool = True
-    kind: str = "mim"               # 'mim' (searchable) | 'dense'
+    # 'mim' (searchable ViT) | 'dense' (ViT) | 'swin_mim' | 'swin'
+    kind: str = "mim"
 
     def init(self, seed: int = 0, *, with_arch: bool = True):
         """A supernet's (params, alphas, arch), or only its params with
@@ -42,10 +47,16 @@ class ModelBundle:
         g = torch.Generator().manual_seed(seed)
         if self.kind == "dense":
             return ViT(self.cfg, generator=g).to(self.device)
-        params = MimViT(self.cfg, self.space, self.mae, generator=g)
+        if self.kind == "swin":
+            return Swin(self.cfg, generator=g).to(self.device)
+        if self.kind == "swin_mim":
+            params = SwinSearch(self.cfg, self.space, generator=g)
+        else:
+            params = MimViT(self.cfg, self.space, self.mae, generator=g)
         if not with_arch:
             return params.to(self.device)
-        alphas = Alphas(self.space, generator=g)
+        alphas = (SwinAlphas if self.kind == "swin_mim" else Alphas)(
+            self.space, generator=g)
         arch = ArchState.create(self.space)
         return (params.to(self.device), alphas.to(self.device),
                 arch.to(self.device))
@@ -55,19 +66,9 @@ def list_models():
     return sorted(_REGISTRY)
 
 
-# the JAX package's Swin names, whose family is not ported
-SWIN_NAMES = tuple(f"swin_{size}_patch4_window7_224{kind}"
-                   for size in ("tiny", "small", "base")
-                   for kind in ("", "_mim"))
-
-
 def create_model(name: str, *, device="cuda", **kwargs) -> ModelBundle:
     """The named model on `device` (default "cuda"; raises without a card
     unless device="cpu" is asked for)."""
-    if name in SWIN_NAMES:
-        raise NotImplementedError(
-            f"model '{name}' is of the Swin family, which the port does not "
-            "have yet: ROADMAP Queue 1 item 16")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {list_models()}")
     return _REGISTRY[name](device=resolve_device(device), **kwargs)
@@ -201,3 +202,41 @@ for _size in ("tiny", "small", "base"):
         _suffix = "_distilled" if _dist else ""
         _REGISTRY[f"vit_deit_{_size}{_suffix}_patch16_{_img}"] = \
             _REGISTRY[f"deit_{_size}{_suffix}_patch16_{_img}"]
+
+
+# the Swin family: dense, and searchable with per-block attention / MLP
+# spaces and optionally per-stage residual widths
+_SWIN_DIMS = {
+    "tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
+    "small": dict(embed_dim=96, depths=(2, 2, 18, 2),
+                  num_heads=(3, 6, 12, 24)),
+    "base": dict(embed_dim=128, depths=(2, 2, 18, 2),
+                 num_heads=(4, 8, 16, 32)),
+}
+
+
+def _swin_factory(size: str, search: bool):
+    def factory(*, device: torch.device, num_classes=1000, img_size=224,
+                attn_search=True, mlp_search=True, head_search=False,
+                channel_search=False, embed_search=False,
+                drop_path_rate=0.1, **_unused) -> ModelBundle:
+        cfg = SwinCfg(img_size=img_size, num_classes=num_classes,
+                      drop_path_rate=drop_path_rate, **_SWIN_DIMS[size])
+        name = f"swin_{size}_patch4_window7_224" + ("_mim" if search else "")
+        if not search:
+            return ModelBundle(name=name, cfg=cfg, space=None, device=device,
+                               kind="swin")
+        space = build_swin_space(
+            cfg, attn_search=attn_search, mlp_search=mlp_search,
+            head_search=head_search, channel_search=channel_search,
+            embed_search=embed_search)
+        return ModelBundle(name=name, cfg=cfg, space=space, device=device,
+                           kind="swin_mim")
+    return factory
+
+
+for _size in _SWIN_DIMS:
+    _REGISTRY[f"swin_{_size}_patch4_window7_224"] = _swin_factory(_size,
+                                                                   False)
+    _REGISTRY[f"swin_{_size}_patch4_window7_224_mim"] = _swin_factory(_size,
+                                                                       True)

@@ -355,9 +355,28 @@ def test_fetch_host_is_one_copy_of_every_type():
 
 
 def test_swin_stage_embeds_are_left_out():
-    pair = Pair(seed=5)
-    space = SearchSpace(embed=pair.space.embed, blocks=pair.space.blocks,
-                        patch=pair.space.patch,
-                        stage_embeds=(pair.space.embed,))
-    with pytest.raises(NotImplementedError):
-        C.compress(pair.params, pair.alphas, pair.arch, None, space)
+    """Per-stage residual widths (Swin) are no longer left out: a crafted
+    stage-0 alpha converges that stage's width, in place, and zeroes the
+    moments of its alpha and score (the full comparison with the JAX
+    package is test_torch_port_swin_search.py's)."""
+    from ofb_tpu_torch.models import swin as SW
+    from ofb_tpu_torch.models import swin_search as SWS
+    cfg = SW.SwinCfg(img_size=32, patch_size=2, num_classes=10, embed_dim=24,
+                     depths=(2, 2), num_heads=(2, 4), window=4, mlp_ratio=2.0)
+    space = SWS.build_swin_space(cfg, embed_search=True)
+    params, alphas, arch = SWS.init_swin_search(
+        cfg, space, generator=torch.Generator().manual_seed(5))
+    _, tx = optimizers()
+    opt = tx.init(O.named_leaves(params, alphas))
+    for t in list(opt.mu.values()) + list(opt.nu.values()):
+        t.fill_(1.0)
+    with torch.no_grad():
+        alphas.stage_embeds[0].fill_(-8.0)
+        alphas.stage_embeds[0][2] = 8.0
+    *_, rep = C.compress(params, alphas, arch, opt, space)
+    assert rep.events[0] == "stage0.embed: prune event (converged)"
+    assert bool(arch.stage_embeds[0].finished)
+    assert int(arch.stage_embeds[0].hard_mask.sum()) == \
+        int(space.stage_embeds[0].cell_sizes[2])
+    zero = {n for n, t in opt.mu.items() if not t.any()}
+    assert zero == {"alphas.stage_embeds.0", "stages.0.embed_score"}

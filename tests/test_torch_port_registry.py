@@ -4,8 +4,9 @@ family's pieces against ofb_tpu on the CPU, in fp32, from the same weights:
 * every name of the JAX registry but the Swin family's (50: the DeiT
   supernets and dense models, the stock ViTs, in21k, MIIL and the
   `vit_deit_*` aliases) builds the same config (`remat` aside, which the
-  port does not have) with the same default class count and kind; the six
-  Swin names raise NotImplementedError naming ROADMAP item 16;
+  port does not have) with the same default class count and kind; so do
+  the six Swin names (dense and searchable), whose family the port now
+  has;
 * a tiny in21k-style ViT (tanh pre-logits, `representation_size`): logits
   and the gradients of every weight against `vit_forward` and `jax.grad`
   (rtol 1e-5, atol 1e-5 of the largest magnitude); `from_jax` / `to_jax`
@@ -51,8 +52,7 @@ SWIN = [n for n in JR.list_models() if n.startswith("swin")]
 
 def test_the_registries_hold_the_same_names():
     assert len(JAX_NAMES) == 50 and len(SWIN) == 6
-    assert R.list_models() == JAX_NAMES
-    assert tuple(sorted(R.SWIN_NAMES)) == tuple(SWIN)
+    assert R.list_models() == sorted(JAX_NAMES + SWIN)
 
 
 @pytest.mark.parametrize("name", JAX_NAMES)
@@ -74,8 +74,11 @@ def test_configs_match_jax(name):
 
 @pytest.mark.parametrize("name", SWIN)
 def test_swin_names_raise_naming_the_item(name):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        R.create_model(name, device="cpu")
+    # the Swin family is ported: each name builds the JAX package's config
+    jb = JR.create_model(name)
+    pb = R.create_model(name, device="cpu")
+    assert dataclasses.asdict(pb.cfg) == dataclasses.asdict(jb.cfg)
+    assert pb.kind == jb.kind
 
 
 def test_registry_shapes_of_the_new_family():
