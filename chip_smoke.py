@@ -129,11 +129,37 @@ which raises (and so exits non-zero) on failure:
      searches of runs/ladder_swin_r5 exported on the card to their
      committed widths. Swin's window attention is plain PyTorch, as in the
      JAX package: the phase asserts that no attention kernel launched.
+ 12. data parallelism over torch.distributed (`run_dist`), DeiT-S at full
+     width and depth, bf16, a global batch of 64, each part in processes
+     of its own (this file run with a role): (a) a world of one over NCCL
+     with torchrun's environment: the search step from one state and
+     generator seed without a group and under NCCL (ArchState
+     bit-identical, every other tensor within TOL_GRAPH), the all-reduce
+     of the step's gradient bucket timed, the planned search step's CUDA
+     graph (the all-reduce captured in it) against eager calls; (b) under
+     `python -m torch.distributed.run --standalone --nproc_per_node 1`:
+     `cli.search` (SYNTHETIC 256, compress threshold 1.0: search, the
+     finish, postsearch, the fuse of best/), `cli.export`, one
+     `cli.finetune` epoch and `cli.eval`, each reporting rank 0 of a world
+     of 1 on NCCL, its launches counted from 0 (all resident), the search
+     epochs' img/s beside phase 7's; (c) two ranks sharing the card over
+     gloo (a correctness run: gloo stages card tensors through the host),
+     each with its half of the global batch: two search steps, a compress
+     pass on alphas crafted on rank 0 only, an eval of its half of a val
+     set; the ranks' weights, compress digests and eval statistics equal,
+     the weights within TOL_GRAPH of one process's two steps on the whole
+     batch (a leaf that starts at 0 holds only its two Adam updates of
+     about +-lr, which a bf16 gradient of another rounding flips: there
+     within twice the furthest such a leaf moved), the eval equal to one
+     process's over the whole set; each
+     rank's 24 + 24 step and 12 eval launches, resident. A process that
+     fails or outlasts DIST_TIMEOUT fails the phase.
 
-The line before the last is the kernels' JSON (`launches` sums the eight
+The line before the last is the kernels' JSON (`launches` sums the nine
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
-`launches_cli`, `launches_384`, `launches_planned`, `launches_vit` and
-`launches_swin` (0) give each; the general body's times are fp32's); the
+`launches_cli`, `launches_384`, `launches_planned`, `launches_vit`,
+`launches_swin` (0) and `launches_dist` (phase 12's processes) give each;
+the general body's times are fp32's); the
 last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2166,6 +2192,506 @@ def run_swin(A, card, root):
     return totals
 
 
+
+# ---------------------------------------------------------------------------
+# phase 12: data parallelism over torch.distributed (parallel/)
+# ---------------------------------------------------------------------------
+
+DIST_BATCH = 64            # the global batch of every phase-12 step
+DIST_TIMEOUT = 300         # seconds a phase-12 process may take
+DIST_CLI_IMAGES = 256      # SYNTHETIC train and val images of 12 (b)
+DIST_CLI_EPOCHS = 3
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _dist_env(rank=None, world=None, **extra):
+    """This environment without a launcher's variables, then the rank and
+    world (on the one card) and `extra` when given."""
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+        "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")}
+    if rank is not None:
+        env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    env.update(extra)
+    return env
+
+
+def _start(cmd, env):
+    """A child in a session of its own, so that a timeout ends it and
+    everything it started."""
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _finish(procs, what):
+    """Wait for every process (DIST_TIMEOUT in all); a timeout or a non-zero
+    exit ends them all and fails the phase. Returns their stdouts."""
+    import signal
+    outs, deadline = [], time.perf_counter() + DIST_TIMEOUT
+    try:
+        for p in procs:
+            out, err = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))
+            sys.stderr.write(err[-4000:])
+            if p.returncode != 0:
+                raise AssertionError(f"{what}: a process exited "
+                                     f"{p.returncode}:\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    return outs
+
+
+def _tagged(out, tag):
+    """The JSON after `tag` on the last line of `out` that starts with it."""
+    for line in reversed(out.splitlines()):
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    raise AssertionError(f"no {tag} line in:\n{out[-2000:]}")
+
+
+def _worker_setup():
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _state_diff(what, got, want):
+    """ArchState and counters bit-identical, every other tensor within
+    TOL_GRAPH of the leaf's largest magnitude; returns (largest relative
+    difference, its leaf)."""
+    import torch
+    from ofb_tpu_torch.core.steps import named_tensors
+    worst = (0.0, "none")
+    for (n, a), (_, b) in zip(named_tensors(got), named_tensors(want)):
+        if n.startswith("arch.") or n == "step" or not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {n} differs")
+            continue
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: {n} is not finite")
+        d = _rel(a, b)
+        worst = max(worst, (d, n))
+    if worst[0] > TOL_GRAPH:
+        raise AssertionError(f"{what}: {worst[1]} differs by "
+                             f"{worst[0]:.3e} (tol {TOL_GRAPH:g})")
+    return worst
+
+
+def dist_step_worker():
+    """12 (a), a process of its own with torchrun's environment for a world
+    of one: the DeiT-S search step (bf16, batch 64) from one state and
+    generator seed without a process group and then under NCCL, compared;
+    the NCCL all-reduce of the step's gradient bucket timed; the planned
+    search step captured as a CUDA graph with the all-reduce inside and
+    replayed against eager calls. Prints `DIST_STEP {json}`."""
+    _worker_setup()
+    import copy
+    import torch
+    import torch.distributed as dist
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.core.optim import named_leaves
+    from ofb_tpu_torch.core.steps import make_planned_search_step
+    from ofb_tpu_torch.ops import attention as A
+    from ofb_tpu_torch.parallel import distributed as D
+
+    bundle, state, step, images, labels = B.build_step(
+        "deit_small", DIST_BATCH, seed=12)
+    ref, spare = copy.deepcopy(state), copy.deepcopy(state)
+
+    def steps(st, n, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        m = None
+        for _ in range(n):
+            st, m = step(st, images, labels, g, 0.75)
+        return st, m
+
+    ref, m_ref = steps(ref, 1, 21)              # no process group
+    spare, _ = steps(spare, 1, 22)              # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spare, _ = steps(spare, 3, 23)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    if D.init_distributed() != (0, 1) or dist.get_backend() != "nccl":
+        raise AssertionError("12 (a): not rank 0 of a world of 1 on NCCL")
+    A.reset_launch_counts()
+    state, m = steps(state, 1, 21)
+    torch.cuda.synchronize()
+    step_counts = by_body(A)
+    if step_counts != only("resident", 12, 12):
+        raise AssertionError(f"12 (a): the NCCL step launched {step_counts}")
+    worst = _state_diff("12 (a)", state, ref)
+    loss_rel = abs(m["loss_total"].item() - m_ref["loss_total"].item()) \
+        / abs(m_ref["loss_total"].item())
+    spare, _ = steps(spare, 1, 24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spare, _ = steps(spare, 3, 25)
+    torch.cuda.synchronize()
+    nccl_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    # the gradient bucket of the step: every leaf and six metrics
+    bucket = [torch.zeros_like(p) for p in
+              named_leaves(state.params, state.alphas).values()] + \
+        [torch.zeros((), device="cuda") for _ in range(6)]
+    nbytes = sum(t.numel() * t.element_size() for t in bucket)
+    D.all_mean_(bucket)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        D.all_mean_(bucket)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+    dev_ms = device_time_ms(lambda: D.all_mean_(bucket), iters=10)
+    del bucket, spare, ref
+
+    # the planned step at world 1 captures the all-reduce in its graph
+    A.reset_launch_counts()
+    scfg, tx = B.search_config(DIST_BATCH)
+    pstep, _ = make_planned_search_step(
+        bundle.space, bundle.cfg, scfg, tx, phase="search",
+        steps_per_epoch=9, device="cuda")
+    _, graph_worst = graph_vs_eager("search step under NCCL", pstep, state,
+                                    DIST_BATCH, True, K=2)
+    graph_counts = by_body(A)
+    dist.destroy_process_group()
+    counts = {k: kernel_counts(step_counts).get(k, 0)
+              + kernel_counts(graph_counts).get(k, 0)
+              for k in kernel_counts(only("resident", 0, 0))}
+    print("DIST_STEP " + json.dumps({
+        "max_diff": worst[0], "max_diff_leaf": worst[1], "loss_rel": loss_rel,
+        "graph_max_diff": graph_worst, "plain_step_ms": plain_ms,
+        "nccl_step_ms": nccl_ms, "bucket_mb": nbytes / 2**20,
+        "allreduce_host_ms": host_ms, "allreduce_wall_ms": wall_ms,
+        "allreduce_device_ms": dev_ms, "step_launches": step_counts,
+        "graph_launches": graph_counts, "counts": counts}), flush=True)
+
+
+def dist_clis_worker(root):
+    """12 (b), rank 0 of `torchrun --standalone --nproc_per_node 1`: the
+    CLIs in this process through their parsers and `main`, DeiT-S, bf16,
+    batch 64, SYNTHETIC at staging 256: `cli.search` (compress threshold
+    1.0: search, the finish, postsearch, the fuse of best/), `cli.export`,
+    one `cli.finetune` epoch and `cli.eval` of its best; each joins the
+    launcher's NCCL group and counts its attention launches from 0.
+    Prints `DIST_CLIS {json}`."""
+    _worker_setup()
+    import torch
+    import torch.distributed as dist
+    from ofb_tpu_torch.cli import eval as eval_cli
+    from ofb_tpu_torch.cli import export, finetune, search
+    from ofb_tpu_torch.ops import attention as A
+
+    n = DIST_CLI_IMAGES
+    steps = n_val = n // DIST_BATCH
+    world_line = "distributed: rank 0 of world 1, backend nccl, device cuda:0"
+    data = ["--data-set", "SYNTHETIC", "--synthetic-size", str(n),
+            "--batch-size", str(DIST_BATCH)]
+    sdir, xdir, fdir = (os.path.join(root, d) for d in
+                        ("dist_search", "dist_exported", "dist_finetune"))
+    runs = {}
+
+    def cli(name, module, argv, fwd, bwd):
+        out, text, counts, dt = run_cli(A, module, argv)
+        if world_line not in text:
+            raise AssertionError(f"12 (b) {name}: no '{world_line}' line")
+        _expect_counts(counts, fwd, bwd, f"12 (b) {name}")
+        runs[name] = {"counts": counts, "seconds": dt,
+                      "epochs": _epochs(text)}
+        return out, text
+
+    E = DIST_CLI_EPOCHS
+    _, text = cli("search", search, data + [
+        "--model", "deit_small_patch16_224_mim", "--accum-iter", "1",
+        "--mixup", "0.8", "--cutmix", "1.0", "--compress-thresh", "1.0",
+        "--epochs", str(E), "--output_dir", sdir],
+        12 * (E * steps + (E + 1) * n_val), 12 * E * steps)
+    if "== finish_search" not in text or "saved model_fused" not in text:
+        raise AssertionError("12 (b): the search did not finish and fuse")
+    for row in _log(os.path.join(sdir, "log.txt")):
+        if not all(math.isfinite(v) for k, v in row.items()
+                   if k.startswith("train_loss")):
+            raise AssertionError(f"12 (b): a loss is not finite: {row}")
+    cli("export", export, ["--checkpoint", os.path.join(sdir, "best"),
+                           "--out", xdir], 0, 0)
+    # the raw and the EMA weights are both evaluated
+    cli("finetune", finetune, data + [
+        "--finetune", xdir, "--epochs", "1", "--output_dir", fdir],
+        12 * (steps + 2 * n_val), 12 * steps)
+    if not math.isfinite(_log(os.path.join(fdir, "log.txt"))[-1]
+                         ["train_loss"]):
+        raise AssertionError("12 (b): the finetune loss is not finite")
+    stats, _ = cli("eval", eval_cli, data + [
+        "--checkpoint", os.path.join(fdir, "best")], 12 * n_val, 0)
+    if not (0.0 <= stats["acc1"] <= 100.0 and math.isfinite(stats["loss"])):
+        raise AssertionError(f"12 (b) eval: {stats}")
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+    for r in runs.values():
+        _add(totals, r["counts"])
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    print("DIST_CLIS " + json.dumps({"runs": runs, "eval": stats,
+                                     "counts": totals}), flush=True)
+
+
+def _pair_val(bundle):
+    """The val set of 12 (c): DIST_BATCH images and labels from a seed."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(14)
+    S = bundle.cfg.img_size
+    return (torch.rand((DIST_BATCH, S, S, 3), generator=g, device="cuda"),
+            torch.randint(0, bundle.cfg.num_classes, (DIST_BATCH,),
+                          generator=g, device="cuda"))
+
+
+def dist_pair_worker(rank, rdzv, out):
+    """12 (c), one of two ranks that share the one card over gloo: two
+    DeiT-S search steps on this rank's half of a global batch of 64, a
+    compress pass on crafted alphas that converges every module (crafted
+    on rank 0 only: rank 1 must take rank 0's decisions), an eval over
+    this rank's half of the val set. Rank 0 writes its weights after the
+    steps and its state after the compress to `out`. Prints
+    `DIST_PAIR {json}`."""
+    _worker_setup()
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.core.compress import compress
+    from ofb_tpu_torch.core.engine import evaluate
+    from ofb_tpu_torch.core.optim import named_leaves
+    from ofb_tpu_torch.core.steps import make_eval_step
+    from ofb_tpu_torch.ops import attention as A
+    from ofb_tpu_torch.parallel import distributed as D
+    from ofb_tpu_torch.core.steps import named_tensors
+    from ofb_tpu_torch.parallel.mesh import local_rows
+
+    if D.init_distributed("gloo", init_method=f"file://{rdzv}") != (rank, 2):
+        raise AssertionError("12 (c): not a world of 2")
+    bundle, state, step, images, labels = B.build_step(
+        "deit_small", DIST_BATCH, seed=13)
+    x = local_rows(images, rank, 2, dim=1)
+    y = local_rows(labels, rank, 2, dim=1)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    A.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(2):
+        state, m = step(state, x, y, g, 0.75)
+        metrics.append(_finite(m, "12 (c)"))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    step_counts = by_body(A)
+    leaves = {n: p.detach().cpu() for n, p in
+              named_leaves(state.params, state.alphas).items()}
+    h = hashlib.sha256()
+    for t in leaves.values():
+        h.update(t.numpy().tobytes())
+    if rank == 0:
+        torch.save(leaves, os.path.join(out, "steps.pt"))
+
+    if rank == 0:
+        report = B.force_convergence(state, bundle.space)[0]
+    else:                       # the same two passes, on uncrafted alphas
+        report = compress(state.params, state.alphas, state.arch,
+                          state.opt_state, bundle.space)[4]
+        compress(state.params, state.alphas, state.arch, state.opt_state,
+                 bundle.space)
+    if not state.arch.all_finished:
+        raise AssertionError(f"12 (c) rank {rank}: compress left modules "
+                             f"open: {report.events}")
+    d = hashlib.sha256(repr(report.events).encode())
+    for _, t in named_tensors((state.arch, state.alphas)):
+        d.update(t.detach().cpu().numpy().tobytes())
+    if rank == 0:
+        torch.save({"leaves": {n: p.detach().cpu() for n, p in named_leaves(
+            state.params, state.alphas).items()},
+            "arch": [t.cpu() for _, t in named_tensors(state.arch)]},
+            os.path.join(out, "compressed.pt"))
+
+    vx, vy = _pair_val(bundle)
+    ev = make_eval_step(bundle.space, bundle.cfg, device="cuda")
+    A.reset_launch_counts()
+    stats = evaluate(ev, [(vx[rank::2], vy[rank::2])], state.params,
+                     state.alphas, state.arch, print_fn=lambda *a: None)
+    eval_counts = by_body(A)
+    D.barrier_sync("12 (c) done")
+    dist.destroy_process_group()
+    counts = {k: kernel_counts(step_counts).get(k, 0)
+              + kernel_counts(eval_counts).get(k, 0)
+              for k in kernel_counts(only("resident", 0, 0))}
+    print("DIST_PAIR " + json.dumps({
+        "rank": rank, "step_digest": h.hexdigest(), "digest": d.hexdigest(),
+        "events": len(report.events), "eval": stats, "metrics": metrics,
+        "step_s": step_s, "step_launches": step_counts,
+        "eval_launches": eval_counts, "counts": counts}), flush=True)
+
+
+def run_dist(A, card, root):
+    """Phase 12: data parallelism (see the module docstring). Returns the
+    launches of the distributed path: 12 (a), (b) and both ranks of (c)."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.core.engine import evaluate
+    from ofb_tpu_torch.core.optim import named_leaves
+    from ofb_tpu_torch.core.steps import make_eval_step
+    from ofb_tpu_torch.core.steps import named_tensors
+
+    torch.cuda.empty_cache()
+    me = os.path.abspath(__file__)
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+
+    # (a) a world of one over NCCL, step by step
+    t0 = time.perf_counter()
+    port = str(_free_port())
+    out, = _finish([_start([sys.executable, me, "--dist-step"], _dist_env(
+        0, 1, MASTER_ADDR="localhost", MASTER_PORT=port))], "12 (a)")
+    a = _tagged(out, "DIST_STEP")
+    for k, n in a["counts"].items():
+        totals[k] += n
+    log(f"dist (a) NCCL world of 1 on {card}: the search step equals the "
+        f"ungrouped one (ArchState bit-identical, largest difference "
+        f"{a['max_diff']:.3e} at {a['max_diff_leaf']}, loss rel "
+        f"{a['loss_rel']:.3e}; tol {TOL_GRAPH:g}); step "
+        f"{a['plain_step_ms']:.2f} ms ungrouped, {a['nccl_step_ms']:.2f} ms "
+        f"under NCCL (3 steps each, host-timed); the gradient bucket "
+        f"({a['bucket_mb']:.1f} MiB) all-reduce with pack and unpack "
+        f"{a['allreduce_device_ms']:.4f} ms device time, "
+        f"{a['allreduce_host_ms']:.4f} ms host, {a['allreduce_wall_ms']:.4f}"
+        f" ms wall a call; the planned step's graph with the all-reduce "
+        f"inside against eager: {a['graph_max_diff']:.3e}; launches step "
+        f"{a['step_launches']}, graph run {a['graph_launches']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) the CLIs under torchrun --standalone --nproc_per_node 1
+    t0 = time.perf_counter()
+    out, = _finish([_start([sys.executable, "-m", "torch.distributed.run",
+                            "--standalone", "--nproc_per_node", "1", me,
+                            "--dist-clis", root],
+                           _dist_env())], "12 (b)")
+    b = _tagged(out, "DIST_CLIS")
+    for k, n in b["counts"].items():
+        totals[k] += n
+    srch = b["runs"]["search"]
+    log(f"dist (b) torchrun --nproc_per_node 1, NCCL: cli.search "
+        f"{len(srch['epochs'])} epochs, sustained img/s by epoch "
+        f"{[round(e[1], 1) for e in srch['epochs']]} (SYNTHETIC "
+        f"{DIST_CLI_IMAGES}; phase 7's classic run without a group, "
+        f"SYNTHETIC 1024: {RATES.get('search')}); finetune "
+        f"{[round(e[1], 1) for e in b['runs']['finetune']['epochs']]} "
+        f"img/s; eval {b['eval']}; seconds by CLI "
+        f"{ {k: round(r['seconds'], 1) for k, r in b['runs'].items()} }; "
+        f"launches by CLI { {k: r['counts'] for k, r in b['runs'].items()} }"
+        f"; all resident; {time.perf_counter() - t0:.1f} s")
+
+    # (c) two ranks sharing the card over gloo, against one process
+    t0 = time.perf_counter()
+    pair = tempfile.mkdtemp(prefix="ofb_pair_", dir=root)
+    outs = _finish([_start([sys.executable, me, "--dist-pair", str(r),
+                            os.path.join(pair, "rdzv"), pair],
+                           _dist_env(r, 2)) for r in range(2)], "12 (c)")
+    r0, r1 = (_tagged(o, "DIST_PAIR") for o in outs)
+    pair_s = time.perf_counter() - t0
+    for key in ("step_digest", "digest", "eval", "metrics"):
+        if r0[key] != r1[key]:
+            raise AssertionError(f"12 (c): the ranks differ in {key}: "
+                                 f"{r0[key]} / {r1[key]}")
+    for r in (r0, r1):
+        if r["step_launches"] != only("resident", 24, 24) or \
+                r["eval_launches"] != only("resident", 12, 0):
+            raise AssertionError(f"12 (c) rank {r['rank']}: launches "
+                                 f"{r['step_launches']}, eval "
+                                 f"{r['eval_launches']}")
+        for k, n in r["counts"].items():
+            totals[k] += n
+    # one process over the global batch of 64, from the same state
+    bundle, state, step, images, labels = B.build_step(
+        "deit_small", DIST_BATCH, seed=13)
+    init = {n: p.detach().clone() for n, p in
+            named_leaves(state.params, state.alphas).items()}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for _ in range(2):
+        state, m = step(state, images, labels, g, 0.75)
+    got = torch.load(os.path.join(pair, "steps.pt"))
+    want = {n: p.detach() for n, p in
+            named_leaves(state.params, state.alphas).items()}
+    # a leaf with a scale of its own: the (a) measure. A leaf that starts
+    # at 0 (biases, layer-norm shifts) holds only its two Adam updates,
+    # each about +-lr whatever the gradient's size, so a gradient that
+    # rounds to the other sign in bf16 (a batch of 32 against 64) flips
+    # them: there the ranks may differ from one process by at most twice
+    # the furthest that any such leaf moved
+    worst, zero = (0.0, "none"), (0.0, 0.0, "none")
+    for n, w in want.items():
+        a = got[n].to(w.device)
+        if init[n].abs().max() > 0:
+            worst = max(worst, (_rel(a, w), n))
+        else:
+            zero = max(zero, ((a - w).abs().max().item(),
+                              (w - init[n]).abs().max().item(), n))
+    moved = max((w - init[n]).abs().max().item() for n, w in want.items()
+                if init[n].abs().max() == 0)
+    if worst[0] > TOL_GRAPH or zero[0] > 2 * moved:
+        raise AssertionError(f"12 (c): the ranks' weights and one "
+                             f"process's differ at {worst[1]} by "
+                             f"{worst[0]:.3e} (tol {TOL_GRAPH:g}); at the "
+                             f"zero-started {zero[2]} by {zero[0]:.3e} "
+                             f"(bound {2 * moved:.3e})")
+    del init
+    loss_rel = abs(r0["metrics"][-1]["loss_total"]
+                   - m["loss_total"].item()) / abs(m["loss_total"].item())
+    # the whole val set in one process, from rank 0's compressed state,
+    # in the ranks' two batches: the sums must be the ranks' exactly
+    saved = torch.load(os.path.join(pair, "compressed.pt"))
+    with torch.no_grad():
+        for n, p in named_leaves(state.params, state.alphas).items():
+            p.copy_(saved["leaves"][n])
+        for t, s in zip((t for _, t in named_tensors(state.arch)),
+                        saved["arch"]):
+            t.copy_(s)
+    vx, vy = _pair_val(bundle)
+    ev = make_eval_step(bundle.space, bundle.cfg, device="cuda")
+    one = evaluate(ev, [(vx[r::2], vy[r::2]) for r in range(2)],
+                   state.params, state.alphas, state.arch,
+                   print_fn=lambda *a: None)
+    if one != r0["eval"]:
+        raise AssertionError(f"12 (c): the ranks' eval {r0['eval']} is not "
+                             f"one process's over the whole set {one}")
+    del state, got, saved
+    A.reset_launch_counts()
+    shutil.rmtree(pair, ignore_errors=True)
+    log(f"dist (c) two ranks on one card over gloo (a correctness run, not "
+        f"a speed figure: gloo stages card tensors through the host) on "
+        f"{card}: weights after 2 steps bit-identical across the ranks and "
+        f"within {worst[0]:.3e} ({worst[1]}) of one process on the global "
+        f"batch, the zero-started leaves within {zero[0]:.3e} ({zero[2]}; "
+        f"the furthest such a leaf moved: {moved:.3e}) (loss rel "
+        f"{loss_rel:.3e}); compress ({r0['events']} events) "
+        f"digests equal; eval {r0['eval']} on both ranks = one process over "
+        f"the whole set; step {r0['step_s'] * 1e3:.1f} / "
+        f"{r1['step_s'] * 1e3:.1f} ms by rank; launches each rank: steps "
+        f"{r0['step_launches']}, eval {r0['eval_launches']}; "
+        f"{pair_s:.1f} s")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2215,6 +2741,7 @@ def main():
         planned = timed("9", run_planned, A, smi, root)
         vit, vit_fp32 = timed("10", run_vit_family, A, smi, root)
         swin = timed("11", run_swin, A, smi, root)
+        dist = timed("12", run_dist, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"seconds by phase: {json.dumps(seconds)}")
@@ -2233,7 +2760,8 @@ def main():
                       launches_lifecycle=lifecycle[name],
                       launches_cli=cli[name], launches_384=at384[name],
                       launches_planned=planned[name],
-                      launches_vit=vit[name], launches_swin=swin[name])
+                      launches_vit=vit[name], launches_swin=swin[name],
+                      launches_dist=dist[name])
         # the streaming body's times are at 577 tokens; the general body's
         # in fp32 at 197 tokens (its 577-token times stand beside them)
         timed = stream_fields[name] if name.endswith("_streaming") \
@@ -2262,4 +2790,12 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # the processes of phase 12 run this file with a role
+    if sys.argv[1:2] == ["--dist-step"]:
+        dist_step_worker()
+    elif sys.argv[1:2] == ["--dist-clis"]:
+        dist_clis_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--dist-pair"]:
+        dist_pair_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        sys.exit(main())

@@ -41,9 +41,15 @@ with per-stage widths (`embed_search`), bf16, on --images images:
              subnet that bench's forced convergence carves out; the
              export of a real search depends on its scores).
 
+Under `torchrun` the CLIs run data parallel (--batch per process) and
+rank 0 prints the line: each epoch's img/s is its rank's, `global_img_s`
+that times the world (the ranks step together); `bench.py`'s step rates
+are one process's on rank 0's card.
+
 Usage: python -m ofb_tpu_torch.bench_cli [--model deit_small | swin_tiny]
        [--batch 64] [--epochs 2] [--images 2048] [--workers 4]
        [--cache-device | --planned-epoch] [--out DIR]
+  torchrun --nproc_per_node N -m ofb_tpu_torch.bench_cli ...
 """
 
 from __future__ import annotations
@@ -72,8 +78,12 @@ def _compress_ms(text):
 
 def _step_rates(result, batch, planned, model, phases):
     """bench.py's step rates of `phases` ((name, extra args)) into
-    `result`."""
+    `result`, on rank 0 only."""
     import torch
+
+    from .parallel.distributed import rank_world
+    if rank_world()[0] != 0:
+        return
     torch.cuda.empty_cache()
     for phase, extra in phases:
         r = step_rate(phase, batch, "--model", model, *extra,
@@ -134,15 +144,28 @@ def main():
 
     import torch
     from .bench import card
+    from .parallel.distributed import init_distributed
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_cli needs a CUDA device")
+    rank, world = init_distributed()
+    if world > 1 and not args.out:
+        raise SystemExit("under torchrun pass --out: the directory rank 0 "
+                         "writes and every rank reads")
     root = args.out or tempfile.mkdtemp(prefix="ofb_bench_cli_")
     result = {"model": args.model, "batch": args.batch,
               "images": args.images, "workers": args.workers,
-              "cache_device": bool(cached), "planned_epoch": bool(planned)}
+              "cache_device": bool(cached), "planned_epoch": bool(planned),
+              "world": world}
     run = swin if args.model == "swin_tiny" else deit
     result.update(run(args, root, cached, planned))
+    if rank != 0:
+        return
+    for lines in result.values():
+        if isinstance(lines, list):
+            for ep in lines:
+                if isinstance(ep, dict) and "img_s" in ep:
+                    ep["global_img_s"] = ep["img_s"] * world
     result["device"] = card()
     print(json.dumps(result), flush=True)
 

@@ -1,21 +1,25 @@
-"""Pieces the port's CLIs share: the tiny test geometries (ViT and Swin),
-rebuilding a supernet from a search run's recorded args, the per-epoch
-random source,
-the refusal of a flag whose piece is not ported yet (--world_size > 1),
-and a CLI run in this process with its printed text kept."""
+"""Pieces the port's CLIs share: the process's place in the world (rank,
+world and card, from the launcher's process group), the tiny test
+geometries (ViT and Swin), rebuilding a supernet from a search run's
+recorded args, the per-epoch random source, and a CLI run in this process
+with its printed text kept."""
 
 from __future__ import annotations
 
 import argparse
 import contextlib
 import sys
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..device import resolve_device
 from ..models.registry import ModelBundle, create_model
 from ..models.search_space import SearchSpace
 from ..models.vit import ModelCfg
+from ..parallel.distributed import group_active, init_distributed
+from ..utils.logging import master_print
 
 # class counts of the datasets whose size a checkpoint's args name
 DATASET_CLASSES = {"DIGITS": 10, "CIFAR10": 10, "CIFAR100": 100,
@@ -110,12 +114,29 @@ def epoch_generator(device: torch.device, seed: int, epoch: int
     return torch.Generator(device=device).manual_seed(epoch_seed(seed, epoch))
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a flag whose piece is not ported."""
-    if getattr(args, "world_size", 1) > 1:
-        raise NotImplementedError(
-            "--world_size > 1 needs the multi-GPU slice, not ported yet: "
-            "ROADMAP Queue 1 slice 5 (item 15)")
+def distributed_setup(device: str) -> Tuple[int, int, torch.device]:
+    """(rank, world, device) of this CLI process. Under a launcher
+    (`torchrun`, or the JAX package's COORDINATOR_ADDRESS contract) it
+    joins the process group (`parallel.distributed.init_distributed`:
+    NCCL on the card, gloo on the CPU) and takes cuda:LOCAL_RANK; without
+    one it is rank 0 of a world of 1. `--world_size` is not read: the world
+    is the launcher's. Prints the rank, world, backend and device."""
+    rank, world = init_distributed(device=device)
+    dev = resolve_device(device)
+    backend = dist.get_backend() if group_active() else "none"
+    print(f"distributed: rank {rank} of world {world}, backend {backend}, "
+          f"device {dev}", flush=True)
+    return rank, world, dev
+
+
+def device_cache_on(args, world: int) -> bool:
+    """Whether --cache-device takes effect: it is single-process only, as
+    in the JAX CLIs, so a larger world falls back to the host loader."""
+    if args.cache_device and world > 1:
+        master_print("--cache-device is single-process only; "
+                     "falling back to the host loader")
+        return False
+    return bool(args.cache_device)
 
 
 class _Tee:

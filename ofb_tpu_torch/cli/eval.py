@@ -13,6 +13,9 @@ per-stage widths). Any of these may be the port's or the JAX package's.
 
   python -m ofb_tpu_torch.cli.eval --checkpoint runs/exp/best \\
       --data-set IMNET --data-path /data/imagenet [--device cpu]
+
+Under `torchrun` each rank scores its shard of the val set and every rank
+reports the whole set's statistics (`core/engine.py:evaluate`).
 """
 
 from __future__ import annotations
@@ -51,11 +54,11 @@ def main(args):
                                    make_swin_eval_step_dense)
     from ..data.datasets import build_dataset
     from ..data.pipeline import device_feed, make_epoch_loader
-    from ..device import resolve_device
     from ..models.vit import ModelCfg, ViT
-    from .common import supernet_bundle, swin_supernet_bundle
+    from .common import (distributed_setup, supernet_bundle,
+                         swin_supernet_bundle)
 
-    dev = resolve_device(args.device)
+    rank, world, dev = distributed_setup(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
     meta = ckpt.latest_meta(args.checkpoint)
@@ -116,7 +119,7 @@ def main(args):
                               compute_dtype=compute, device=dev)
         state_args = (params, alphas, arch)
 
-    loader = make_epoch_loader(ds_val, epoch=0, rank=0, world=1,
+    loader = make_epoch_loader(ds_val, epoch=0, rank=rank, world=world,
                                batch_size=args.batch_size,
                                repeated_aug=False, train=False)
     feed = device_feed(loader, train=False, out_size=input_size, device=dev)

@@ -9,6 +9,8 @@ True` and its `model_cfg` in the meta.
 
   python -m ofb_tpu_torch.cli.export --checkpoint runs/exp/best \\
       --out runs/exp/exported [--device cpu]
+
+Under `torchrun` every rank exports the same subnet and rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ def main(args):
     from ..core import checkpoint as ckpt
     from ..core.compress import compress
     from ..core.export import export_subnet, exported_param_count
-    from ..device import resolve_device
-    from .common import classes_from_args, supernet_bundle
+    from .common import (classes_from_args, distributed_setup,
+                         supernet_bundle)
 
-    dev = resolve_device(args.device)
+    _, _, dev = distributed_setup(args.device)
     meta = ckpt.latest_meta(args.checkpoint)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint at {args.checkpoint}")
@@ -68,6 +70,7 @@ def main(args):
         "exported": True, "model_cfg": dataclasses.asdict(dense_cfg),
         "export": export_meta, "source": args.checkpoint,
         "params_m": n / 1e6})
+    ckpt.commit_saves("export written")
     print(f"saved to {args.out}")
     return dense, dense_cfg
 

@@ -15,7 +15,10 @@ better of the two in `best`.
 --distillation-type soft|hard distils from --teacher-model
 (`models/teacher.py`); --planned-epoch (with --cache-device) runs the
 planned loop: the epoch's plan on the device and, on the card, each step
-one CUDA graph replay.
+one CUDA graph replay. Under `torchrun` each process trains on its rank's
+shard of the plan (--batch-size per process, the lr scaled by the world's
+batch), the steps average their gradients over the ranks, and rank 0
+writes; --cache-device is single-process only.
 """
 
 from __future__ import annotations
@@ -121,7 +124,7 @@ def get_args_parser():
     p.add_argument("--use-amp", action="store_true", help="[compat] no-op")
     p.add_argument("--gpu", default="", help="[compat] no-op")
     p.add_argument("--world_size", default=1, type=int,
-                   help="> 1 raises: multi-GPU is not ported yet")
+                   help="[compat] no-op: the world is the launcher's")
     p.add_argument("--dist_url", default="env://", help="[compat] no-op")
     p.add_argument("--dist-eval", action="store_true", help="[compat] no-op")
     p.add_argument("--pin-mem", action="store_true", help="[compat] no-op")
@@ -200,17 +203,17 @@ def main(args):
     from ..data.datasets import build_dataset
     from ..data.pipeline import (build_device_cache, device_cache_feed,
                                  device_feed, epoch_plan, make_epoch_loader)
-    from ..device import resolve_device
     from ..models.pos_embed import interpolate_pos_embed
     from ..models.vit import dense_flops
+    from ..parallel.distributed import reinit_state
     from ..utils.logging import RunLogger, master_print
-    from .common import epoch_generator, epoch_seed, refuse_unported
+    from .common import (device_cache_on, distributed_setup, epoch_generator,
+                         epoch_seed)
 
-    refuse_unported(args)
     if args.planned_epoch and not args.cache_device:
         raise SystemExit("--planned-epoch gathers its batches from the "
                          "device cache: it needs --cache-device")
-    dev = resolve_device(args.device)
+    rank, world, dev = distributed_setup(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
     dcfg = DataConfig(data_path=args.data_path, data_set=args.data_set,
@@ -225,7 +228,9 @@ def main(args):
     ds_val, _ = build_dataset(False, dcfg, staging)
 
     cache_train = cache_val = None
-    if args.cache_device:
+    use_cache = device_cache_on(args, world)
+    planned = args.planned_epoch and use_cache
+    if use_cache:
         max_bytes = int(args.cache_device_max_gb * 2**30)
         cache_train = build_device_cache(ds_train, max_bytes=max_bytes,
                                          device=dev)
@@ -246,14 +251,14 @@ def main(args):
         params.pos_embed = torch.nn.Parameter(interpolate_pos_embed(
             params.pos_embed.detach(), cfg.num_patches, cfg.num_tokens))
 
-    eff_batch = args.batch_size * args.accum_iter
+    eff_batch = args.batch_size * args.accum_iter * world
     lr = args.lr if args.lr is not None else args.blr * eff_batch / 256
     master_print(f"finetune lr {lr:.2e} (eff batch {eff_batch}) "
                  f"model dims: D={cfg.embed_dim} blocks={cfg.block_overrides}")
 
     batch = args.batch_size * args.accum_iter
     steps_per_epoch = len(make_epoch_loader(
-        ds_train, epoch=0, rank=0, world=1, batch_size=batch,
+        ds_train, epoch=0, rank=rank, world=world, batch_size=batch,
         repeated_aug=args.repeated_aug, train=True, seed=args.seed))
     total_micro = args.epochs * steps_per_epoch * args.accum_iter
     sched_cfg = ScheduleConfig(sched=args.sched, warmup_lr=args.warmup_lr,
@@ -291,6 +296,7 @@ def main(args):
         start_epoch = restored["meta"].get("epoch", -1) + 1
         master_print(f"resumed from {args.checkpoint} at epoch "
                      f"{start_epoch}")
+    reinit_state((state, ema_model))
 
     mix = MixupConfig(mixup=args.mixup, cutmix=args.cutmix,
                       prob=args.mixup_prob,
@@ -312,7 +318,7 @@ def main(args):
                   ema_decay=args.model_ema_decay if args.model_ema else None,
                   teacher_apply=teacher_apply, distill=distill,
                   compute_dtype=compute, device=dev)
-    if args.planned_epoch:
+    if planned:
         step_fn = make_planned_train_step(
             cfg, tx, accum_iter=args.accum_iter, use_randaug=bool(args.aa),
             re_prob=args.reprob, crop_scale=(args.min_crop_scale, 1.0),
@@ -333,24 +339,26 @@ def main(args):
     def run_eval(model, header):
         if cache_val is not None:
             vfeed = device_cache_feed(
-                *cache_val, epoch=0, rank=0, world=1,
+                *cache_val, epoch=0, rank=rank, world=world,
                 batch_size=args.batch_size, repeated_aug=False, train=False,
                 seed=args.seed, out_size=out_size)
         else:
             vfeed = device_feed(make_epoch_loader(
-                ds_val, epoch=0, rank=0, world=1, batch_size=args.batch_size,
+                ds_val, epoch=0, rank=rank, world=world,
+                batch_size=args.batch_size,
                 repeated_aug=False, train=False, seed=args.seed),
                 train=False, out_size=out_size, device=dev)
         return evaluate(eval_step, vfeed, model, header=header)
 
     for epoch in range(start_epoch, args.epochs):
-        if args.planned_epoch:
+        if planned:
             # one generator for the run, reseeded each epoch: a captured
             # step draws from the generator it was captured with
             plan_gen.manual_seed(epoch_seed(args.seed, epoch))
             batches = epoch_plan(
-                int(cache_train[0].shape[0]), epoch=epoch, rank=0, world=1,
-                batch_size=batch, repeated_aug=args.repeated_aug, train=True,
+                int(cache_train[0].shape[0]), epoch=epoch, rank=rank,
+                world=world, batch_size=batch,
+                repeated_aug=args.repeated_aug, train=True,
                 seed=args.seed)
             state, train_stats = train_one_epoch_planned(
                 state, step_fn, cache_train[0], cache_train[1], batches,
@@ -359,14 +367,15 @@ def main(args):
             gen = epoch_generator(dev, args.seed, epoch)
             if cache_train is not None:
                 feed = device_cache_feed(
-                    *cache_train, generator=gen, epoch=epoch, rank=0,
-                    world=1, batch_size=batch,
+                    *cache_train, generator=gen, epoch=epoch, rank=rank,
+                    world=world, batch_size=batch,
                     repeated_aug=args.repeated_aug, train=True,
                     seed=args.seed, accum_iter=args.accum_iter,
                     out_size=out_size, **aug)
             else:
                 loader = make_epoch_loader(
-                    ds_train, epoch=epoch, rank=0, world=1, batch_size=batch,
+                    ds_train, epoch=epoch, rank=rank, world=world,
+                    batch_size=batch,
                     repeated_aug=args.repeated_aug, train=True,
                     seed=args.seed,
                     num_workers=args.num_workers if not args.tiny_test
@@ -417,7 +426,7 @@ def main(args):
             logger.log_epoch(epoch, train_stats, test_stats, n_params,
                              dense_flops(cfg))
 
-    ckpt.wait_for_pending_saves()
+    ckpt.commit_saves("finetune checkpoints committed")
     master_print(f"Finetune time "
                  f"{time.strftime('%H:%M:%S', time.gmtime(time.time() - t0))}")
     return state

@@ -19,8 +19,16 @@ replay. --pretrained_path loads a timm DeiT / ViT state dict
 (`models/torch_import.py`); --distillation-type soft|hard adds the teacher
 (`models/teacher.py`). --resume --checkpoint takes a running checkpoint
 of the port's or of the JAX package's (params, alphas, arch state, Adam
-moments, EMA and the epoch). --world_size > 1 raises NotImplementedError
-(the multi-GPU slice is not ported yet).
+moments, EMA and the epoch).
+
+Under `torchrun` every process takes its rank's shard of each epoch's plan
+(--batch-size is per process, the learning rates scale with the world's
+batch) and the steps average their gradients over the ranks; rank 0 writes
+the run's files. --cache-device (and so --planned-epoch) is single-process
+only and falls back to the host loader at a larger world:
+
+  torchrun --nproc_per_node 8 -m ofb_tpu_torch.cli.search --data-set IMNET \
+      --data-path /data/imagenet --batch-size 64 --output_dir runs/s8
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import copy
 import os
 import time
 
+import numpy as np
 import torch
 
 
@@ -172,7 +181,7 @@ def get_args_parser():
                    help="[compat] no-op: --compute-dtype sets the precision")
     p.add_argument("--gpu", default="", help="[compat] no-op")
     p.add_argument("--world_size", default=1, type=int,
-                   help="> 1 raises: multi-GPU is not ported yet")
+                   help="[compat] no-op: the world is the launcher's")
     p.add_argument("--dist_url", default="env://", help="[compat] no-op")
     p.add_argument("--dist-eval", action="store_true", help="[compat] no-op")
     p.add_argument("--pin-mem", action="store_true", help="[compat] no-op")
@@ -195,20 +204,19 @@ def main(args):
     from ..data.datasets import build_dataset
     from ..data.pipeline import (build_device_cache, device_cache_feed,
                                  device_feed, epoch_plan, make_epoch_loader)
-    from ..device import resolve_device
     from ..models.mim_vit import fuse_params
     from ..models.registry import create_model
     from ..ops.flops import model_flops, searched_params_count
+    from ..parallel.distributed import reinit_state
     from ..utils.logging import RunLogger, master_print
-    from .common import (epoch_generator, epoch_seed, refuse_unported,
-                         tiny_bundle)
+    from .common import (device_cache_on, distributed_setup, epoch_generator,
+                         epoch_seed, tiny_bundle)
 
-    refuse_unported(args)
     if args.planned_epoch and not (args.cache_device and args.fused_augment):
         raise SystemExit("--planned-epoch gathers its batches from the "
                          "device cache and augments them in the step: it "
                          "needs --cache-device and the fused augment")
-    dev = resolve_device(args.device)
+    rank, world, dev = distributed_setup(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
 
@@ -266,9 +274,10 @@ def main(args):
             alpha=args.distillation_alpha, tau=args.distillation_tau),
         resume=args.resume, checkpoint=args.checkpoint,
         pretrained_path=args.pretrained_path,
-    ).resolve(world_size=1)
+    ).resolve(world_size=world)
 
     master_print(scfg)
+    np.random.seed(scfg.seed + rank)
 
     staging = 256 if not args.tiny_test else 40
     out_size = scfg.data.input_size if not args.tiny_test else 32
@@ -276,7 +285,9 @@ def main(args):
     ds_val, _ = build_dataset(False, scfg.data, staging)
 
     cache_train = cache_val = None
-    if args.cache_device:
+    use_cache = device_cache_on(args, world)
+    planned = args.planned_epoch and use_cache
+    if use_cache:
         t0 = time.time()
         max_bytes = int(args.cache_device_max_gb * 2**30)
         cache_train = build_device_cache(ds_train, max_bytes=max_bytes,
@@ -310,7 +321,7 @@ def main(args):
 
     batch = scfg.data.batch_size * scfg.accum_iter
     steps_per_epoch = len(make_epoch_loader(
-        ds_train, epoch=0, rank=0, world=1, batch_size=batch,
+        ds_train, epoch=0, rank=rank, world=world, batch_size=batch,
         repeated_aug=scfg.data.repeated_aug, train=True, seed=scfg.seed))
     total_micro = scfg.epochs * steps_per_epoch * scfg.accum_iter
     master_print(f"steps/epoch: {steps_per_epoch} (accum {scfg.accum_iter})")
@@ -344,6 +355,7 @@ def main(args):
             arch=state.arch, opt_state=state.opt_state, ema_params=ema)
         start_epoch = restored["meta"].get("epoch", -1) + 1
         master_print(f"resumed from {scfg.checkpoint} at epoch {start_epoch}")
+    reinit_state(state)
     finish_search = state.arch.all_finished
 
     pmask, amask = make_trainable_mask(
@@ -366,7 +378,7 @@ def main(args):
                       crop_scale=(args.min_crop_scale, 1.0),
                       hflip=args.hflip, fused_model=bool(state.arch.fused),
                       device=dev)
-        if args.planned_epoch:
+        if planned:
             return make_planned_search_step(
                 space, cfg, scfg, tx, steps_per_epoch=steps_per_epoch,
                 **common)
@@ -376,7 +388,7 @@ def main(args):
 
     step_fn, step_keys = build_step("postsearch" if finish_search
                                     else "search")
-    if args.planned_epoch:
+    if planned:
         master_print("planned-epoch loop: the epoch's plan on the device, "
                      "one step call an iteration")
         plan_gen = torch.Generator(device=dev)
@@ -385,11 +397,11 @@ def main(args):
     def make_val_feed():
         if cache_val is not None:
             return device_cache_feed(
-                *cache_val, epoch=0, rank=0, world=1,
+                *cache_val, epoch=0, rank=rank, world=world,
                 batch_size=scfg.data.batch_size, repeated_aug=False,
                 train=False, seed=scfg.seed, out_size=out_size)
         vloader = make_epoch_loader(
-            ds_val, epoch=0, rank=0, world=1,
+            ds_val, epoch=0, rank=rank, world=world,
             batch_size=scfg.data.batch_size, repeated_aug=False,
             train=False, seed=scfg.seed)
         return device_feed(vloader, train=False, out_size=out_size,
@@ -412,12 +424,13 @@ def main(args):
                          "mixup/cutmix on, soft-target CE ==")
 
         was_finished = finish_search
-        if args.planned_epoch:
+        if planned:
             # one generator for the run, reseeded each epoch: a captured
             # step draws from the generator it was captured with
             plan_gen.manual_seed(epoch_seed(scfg.seed, epoch))
             batches = epoch_plan(
-                int(cache_train[0].shape[0]), epoch=epoch, rank=0, world=1,
+                int(cache_train[0].shape[0]), epoch=epoch, rank=rank,
+                world=world,
                 batch_size=batch, repeated_aug=scfg.data.repeated_aug,
                 train=True, seed=scfg.seed)
             state, train_stats, finish_search, pruned = \
@@ -430,14 +443,15 @@ def main(args):
             gen = epoch_generator(dev, scfg.seed, epoch)
             if cache_train is not None:
                 feed = device_cache_feed(
-                    *cache_train, generator=gen, epoch=epoch, rank=0,
-                    world=1, batch_size=batch,
+                    *cache_train, generator=gen, epoch=epoch, rank=rank,
+                    world=world, batch_size=batch,
                     repeated_aug=scfg.data.repeated_aug, train=True,
                     seed=scfg.seed, accum_iter=scfg.accum_iter,
                     out_size=out_size, **aug)
             else:
                 loader = make_epoch_loader(
-                    ds_train, epoch=epoch, rank=0, world=1, batch_size=batch,
+                    ds_train, epoch=epoch, rank=rank, world=world,
+                    batch_size=batch,
                     repeated_aug=scfg.data.repeated_aug, train=True,
                     seed=scfg.seed,
                     num_workers=scfg.data.num_workers if not args.tiny_test
@@ -505,6 +519,8 @@ def main(args):
     # fuse the best checkpoint (when it was written after finish_search),
     # evaluate the fused net, save model_fused
     if finish_search:
+        # every rank reads best/ as rank 0 wrote it
+        ckpt.commit_saves("search best written")
         bparams, balphas, barch = (copy.deepcopy(state.params),
                                    copy.deepcopy(state.alphas),
                                    copy.deepcopy(state.arch))
@@ -534,7 +550,7 @@ def main(args):
                       "fused_acc1": fstats["acc1"]})
             master_print("saved model_fused")
 
-    ckpt.wait_for_pending_saves()
+    ckpt.commit_saves("search checkpoints committed")
     master_print(f"Training time "
                  f"{time.strftime('%H:%M:%S', time.gmtime(time.time() - t_start))}")
     return state

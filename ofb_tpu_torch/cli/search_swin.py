@@ -20,7 +20,11 @@ read from best/.
       --tiny-test --device cpu --compute-dtype float32 --epochs 2 \\
       --batch-size 8 --output_dir runs/swin_smoke
 
---device defaults to cuda and raises without a card.
+--device defaults to cuda and raises without a card. Under `torchrun`
+each process takes its rank's shard of the plan (--batch-size per process,
+the learning rates scaled by the world), the steps average their gradients
+over the ranks, every rank takes rank 0's compress decisions and rank 0
+writes; --cache-device is single-process only.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 
 
@@ -136,15 +141,16 @@ def main(args):
     from ..data.datasets import build_dataset
     from ..data.pipeline import (build_device_cache, device_cache_feed,
                                  device_feed, epoch_plan, make_epoch_loader)
-    from ..device import resolve_device
     from ..models.swin_search import export_swin_subnet
+    from ..parallel.distributed import reinit_state
     from ..utils.logging import RunLogger, master_print
-    from .common import epoch_generator, epoch_seed, swin_supernet_bundle
+    from .common import (device_cache_on, distributed_setup, epoch_generator,
+                         epoch_seed, swin_supernet_bundle)
 
     if args.planned_epoch and not args.cache_device:
         raise SystemExit("--planned-epoch gathers its batches from the "
                          "device cache: it needs --cache-device")
-    dev = resolve_device(args.device)
+    rank, world, dev = distributed_setup(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
 
@@ -168,7 +174,8 @@ def main(args):
                         repeated_aug=args.repeated_aug,
                         batch_size=args.batch_size,
                         synthetic_size=args.synthetic_size),
-    ).resolve(world_size=1)
+    ).resolve(world_size=world)
+    np.random.seed(scfg.seed + rank)
 
     staging = 256 if not args.tiny_test else 40
     out_size = args.input_size if not args.tiny_test else 32
@@ -176,7 +183,9 @@ def main(args):
     ds_train, nb_classes = build_dataset(True, scfg.data, staging)
     ds_val, _ = build_dataset(False, scfg.data, staging)
     cache_train = cache_val = None
-    if args.cache_device:
+    use_cache = device_cache_on(args, world)
+    planned = args.planned_epoch and use_cache
+    if use_cache:
         max_bytes = int(args.cache_device_max_gb * 2**30)
         cache_train = build_device_cache(ds_train, max_bytes=max_bytes,
                                          device=dev)
@@ -190,7 +199,7 @@ def main(args):
 
     batch = args.batch_size * scfg.accum_iter
     steps_per_epoch = len(make_epoch_loader(
-        ds_train, epoch=0, rank=0, world=1, batch_size=batch,
+        ds_train, epoch=0, rank=rank, world=world, batch_size=batch,
         repeated_aug=args.repeated_aug, train=True, seed=scfg.seed))
     total_micro = scfg.epochs * steps_per_epoch * scfg.accum_iter
     master_print(f"swin search: steps/epoch {steps_per_epoch} "
@@ -222,6 +231,7 @@ def main(args):
         bmeta = ckpt.latest_meta(os.path.join(scfg.output_dir, "best")) \
             if scfg.output_dir else None
         max_acc = float(bmeta["acc1"]) if bmeta and "acc1" in bmeta else 0.0
+    reinit_state(state)
 
     aug = dict(use_randaug=bool(args.aa), re_prob=args.reprob,
                crop_scale=(args.min_crop_scale, 1.0), hflip=args.hflip)
@@ -229,7 +239,7 @@ def main(args):
 
     def search_step(phase):
         if phase not in steps:
-            if args.planned_epoch:
+            if planned:
                 steps[phase] = make_planned_swin_search_step(
                     space, cfg, scfg, tx, phase=phase,
                     steps_per_epoch=steps_per_epoch, compute_dtype=compute,
@@ -240,7 +250,7 @@ def main(args):
                     device=dev), None)
         return steps[phase]
 
-    if args.planned_epoch:
+    if planned:
         master_print("planned-epoch loop: one step call an iteration")
         plan_gen = torch.Generator(device=dev)
     eval_step = make_swin_eval_step(space, cfg, compute_dtype=compute,
@@ -250,12 +260,12 @@ def main(args):
     def train_feed(epoch, gen, *, batch, ra, accum):
         if cache_train is not None:
             return device_cache_feed(
-                *cache_train, generator=gen, epoch=epoch, rank=0, world=1,
-                batch_size=batch, repeated_aug=ra, train=True,
+                *cache_train, generator=gen, epoch=epoch, rank=rank,
+                world=world, batch_size=batch, repeated_aug=ra, train=True,
                 seed=scfg.seed, accum_iter=accum, out_size=out_size, **aug)
         loader = make_epoch_loader(
-            ds_train, epoch=epoch, rank=0, world=1, batch_size=batch,
-            repeated_aug=ra, train=True, seed=scfg.seed,
+            ds_train, epoch=epoch, rank=rank, world=world,
+            batch_size=batch, repeated_aug=ra, train=True, seed=scfg.seed,
             num_workers=args.num_workers if not args.tiny_test else 0)
         return device_feed(loader, generator=gen, train=True,
                            accum_iter=accum, out_size=out_size, device=dev,
@@ -264,10 +274,10 @@ def main(args):
     def val_feed():
         if cache_val is not None:
             return device_cache_feed(
-                *cache_val, epoch=0, rank=0, world=1,
+                *cache_val, epoch=0, rank=rank, world=world,
                 batch_size=args.batch_size, repeated_aug=False, train=False,
                 seed=scfg.seed, out_size=out_size)
-        vloader = make_epoch_loader(ds_val, epoch=0, rank=0, world=1,
+        vloader = make_epoch_loader(ds_val, epoch=0, rank=rank, world=world,
                                     batch_size=args.batch_size,
                                     repeated_aug=False, train=False,
                                     seed=scfg.seed)
@@ -275,8 +285,9 @@ def main(args):
                            device=dev)
 
     def plan(n, epoch, batch, ra):
-        return epoch_plan(n, epoch=epoch, rank=0, world=1, batch_size=batch,
-                          repeated_aug=ra, train=True, seed=scfg.seed)
+        return epoch_plan(n, epoch=epoch, rank=rank, world=world,
+                          batch_size=batch, repeated_aug=ra, train=True,
+                          seed=scfg.seed)
 
     run_meta = {"family": "swin", "args": vars(args),
                 "model_cfg": dataclasses.asdict(cfg)}
@@ -285,7 +296,7 @@ def main(args):
     for epoch in range(start_epoch, scfg.epochs):
         step_fn, keys = search_step("postsearch" if finish_search
                                     else "search")
-        if args.planned_epoch:
+        if planned:
             plan_gen.manual_seed(epoch_seed(scfg.seed, epoch))
             state, stats, finish_search, pruned = search_one_epoch_planned(
                 state, step_fn, keys, cache_train[0], cache_train[1],
@@ -328,8 +339,9 @@ def main(args):
         # arch-loss pressure degrades the classifier
         best_dir = os.path.join(scfg.output_dir, "best") \
             if scfg.output_dir else ""
+        # every rank reads best/ as rank 0 wrote it
+        ckpt.commit_saves("swin search best written")
         if best_dir and ckpt.latest_meta(best_dir) is not None:
-            ckpt.wait_for_pending_saves()
             bmeta = ckpt.load_checkpoint(
                 best_dir, params=state.params, alphas=state.alphas,
                 arch=state.arch)["meta"]
@@ -363,7 +375,8 @@ def main(args):
         if args.export_finetune_epochs > 0:
             ft_best, ft_best_params = _finetune_subnet(
                 args, dense, dcfg, steps_per_epoch * scfg.accum_iter,
-                compute=compute, device=dev, cache_train=cache_train,
+                compute=compute, device=dev, world=world,
+                planned=planned, cache_train=cache_train,
                 train_feed=train_feed, val_feed=val_feed, plan=plan,
                 dense_eval=dense_eval)
             master_print(f"finetuned subnet acc1 {ft_best:.2f}% "
@@ -373,18 +386,18 @@ def main(args):
                 os.path.join(scfg.output_dir, "model_finetuned"),
                 params=ft_best_params, meta={**sub_meta, "acc1": ft_best})
 
-    ckpt.wait_for_pending_saves()
+    ckpt.commit_saves("swin search checkpoints committed")
     master_print(f"Swin search time "
                  f"{time.strftime('%H:%M:%S', time.gmtime(time.time() - t0))}")
     return state
 
 
 def _finetune_subnet(args, dense, dcfg, ft_steps_per_epoch, *, compute,
-                     device, cache_train, train_feed, val_feed, plan,
-                     dense_eval):
+                     device, world, planned, cache_train, train_feed,
+                     val_feed, plan, dense_eval):
     """The export finetune: cosine AdamW (weight decay 0.05, lr blr x
-    batch / 256, warmup min(5, epochs // 4)) of the sliced subnet, one
-    microbatch a step. Returns (best acc1, a copy of the weights that
+    batch x world / 256, warmup min(5, epochs // 4)) of the sliced subnet,
+    one microbatch a step. Returns (best acc1, a copy of the weights that
     reached it)."""
     from ..config import ScheduleConfig
     from ..core.engine import (evaluate, train_one_epoch,
@@ -396,7 +409,7 @@ def _finetune_subnet(args, dense, dcfg, ft_steps_per_epoch, *, compute,
     from .common import epoch_generator, epoch_seed
 
     epochs = args.export_finetune_epochs
-    lr = (args.blr or 2.5e-4) * args.batch_size / 256
+    lr = (args.blr or 2.5e-4) * args.batch_size * world / 256
     sch = cosine_schedule(
         lr, ScheduleConfig(warmup_lr=1e-6, min_lr=1e-6,
                            warmup_epochs=min(5, epochs // 4)),
@@ -406,7 +419,7 @@ def _finetune_subnet(args, dense, dcfg, ft_steps_per_epoch, *, compute,
                         opt_state=ftx.init(dict(dense.named_parameters())))
     aug = dict(use_randaug=bool(args.aa), re_prob=args.reprob,
                crop_scale=(args.min_crop_scale, 1.0), hflip=args.hflip)
-    if args.planned_epoch:
+    if planned:
         ft_step = make_planned_swin_train_step(
             dcfg, ftx, smoothing=args.smoothing, compute_dtype=compute,
             device=device, **aug)
@@ -418,7 +431,7 @@ def _finetune_subnet(args, dense, dcfg, ft_steps_per_epoch, *, compute,
     best, best_params = 0.0, copy.deepcopy(dense)
     for fe in range(epochs):
         seed = args.seed + 777
-        if args.planned_epoch:
+        if planned:
             gen.manual_seed(epoch_seed(seed, fe))
             fstate, _ = train_one_epoch_planned(
                 fstate, ft_step, cache_train[0], cache_train[1],

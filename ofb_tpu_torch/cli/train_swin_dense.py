@@ -16,6 +16,9 @@ only, and a resume loses them).
   python -m ofb_tpu_torch.cli.train_swin_dense --data-set SYNTHETIC \\
       --tiny-test --device cpu --compute-dtype float32 --epochs 2 \\
       --batch-size 8 --output_dir runs/swin_dense_smoke
+
+Under `torchrun` the ranks split each batch plan and average their
+gradients (lr scaled by the world); --cache-device is single-process only.
 """
 
 from __future__ import annotations
@@ -82,16 +85,17 @@ def main(args):
     from ..data.datasets import build_dataset
     from ..data.pipeline import (build_device_cache, device_cache_feed,
                                  device_feed, epoch_plan, make_epoch_loader)
-    from ..device import resolve_device
     from ..models.registry import create_model
     from ..models.swin import Swin
+    from ..parallel.distributed import reinit_state
     from ..utils.logging import master_print
-    from .common import epoch_generator, epoch_seed, swin_tiny_cfg
+    from .common import (device_cache_on, distributed_setup, epoch_generator,
+                         epoch_seed, swin_tiny_cfg)
 
     if args.planned_epoch and not args.cache_device:
         raise SystemExit("--planned-epoch gathers its batches from the "
                          "device cache: it needs --cache-device")
-    dev = resolve_device(args.device)
+    rank, world, dev = distributed_setup(args.device)
     compute = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
     t0 = time.time()
@@ -105,7 +109,9 @@ def main(args):
     ds_train, nb_classes = build_dataset(True, dcfg, staging)
     ds_val, _ = build_dataset(False, dcfg, staging)
     cache_train = cache_val = None
-    if args.cache_device:
+    use_cache = device_cache_on(args, world)
+    planned = args.planned_epoch and use_cache
+    if use_cache:
         max_bytes = int(args.cache_device_max_gb * 2**30)
         cache_train = build_device_cache(ds_train, max_bytes=max_bytes,
                                          device=dev)
@@ -125,11 +131,11 @@ def main(args):
         params = bundle.init(args.seed)
 
     steps_per_epoch = len(make_epoch_loader(
-        ds_train, epoch=0, rank=0, world=1, batch_size=args.batch_size,
+        ds_train, epoch=0, rank=rank, world=world, batch_size=args.batch_size,
         repeated_aug=False, train=True, seed=args.seed))
     master_print(f"dense swin: steps/epoch {steps_per_epoch}")
     # the Swin search's export-finetune recipe
-    lr = args.blr * args.batch_size / 256
+    lr = args.blr * args.batch_size * world / 256
     sch = cosine_schedule(
         lr, ScheduleConfig(warmup_lr=1e-6, min_lr=1e-6,
                            warmup_epochs=min(5, args.epochs // 4)),
@@ -154,12 +160,13 @@ def main(args):
             ckpt.load_checkpoint(best_dir, params=best_params)
         master_print(f"resumed from {rdir} at epoch {start_epoch} (best "
                      f"acc1 {best:.2f})")
+    reinit_state((state, best_params))
 
     aug = dict(use_randaug=bool(args.aa), re_prob=args.reprob,
                crop_scale=(args.min_crop_scale, 1.0), hflip=args.hflip)
     eval_step = make_swin_eval_step_dense(cfg, compute_dtype=compute,
                                           device=dev)
-    if args.planned_epoch:
+    if planned:
         step = make_planned_swin_train_step(cfg, tx, smoothing=args.smoothing,
                                             compute_dtype=compute, device=dev,
                                             **aug)
@@ -172,10 +179,10 @@ def main(args):
     def val_feed():
         if cache_val is not None:
             return device_cache_feed(
-                *cache_val, epoch=0, rank=0, world=1,
+                *cache_val, epoch=0, rank=rank, world=world,
                 batch_size=args.batch_size, repeated_aug=False, train=False,
                 seed=args.seed, out_size=out_size)
-        vloader = make_epoch_loader(ds_val, epoch=0, rank=0, world=1,
+        vloader = make_epoch_loader(ds_val, epoch=0, rank=rank, world=world,
                                     batch_size=args.batch_size,
                                     repeated_aug=False, train=False,
                                     seed=args.seed)
@@ -188,10 +195,11 @@ def main(args):
     for ep in range(start_epoch, args.epochs):
         te = time.time()
         seed = args.seed + 777
-        if args.planned_epoch:
+        if planned:
             plan_gen.manual_seed(epoch_seed(seed, ep))
             batches = epoch_plan(int(cache_train[0].shape[0]), epoch=ep,
-                                 rank=0, world=1, batch_size=args.batch_size,
+                                 rank=rank, world=world,
+                                 batch_size=args.batch_size,
                                  repeated_aug=False, train=True,
                                  seed=args.seed)
             state, _ = train_one_epoch_planned(
@@ -201,12 +209,13 @@ def main(args):
             gen = epoch_generator(dev, seed, ep)
             if cache_train is not None:
                 feed = device_cache_feed(
-                    *cache_train, generator=gen, epoch=ep, rank=0, world=1,
-                    batch_size=args.batch_size, repeated_aug=False,
-                    train=True, seed=args.seed, out_size=out_size, **aug)
+                    *cache_train, generator=gen, epoch=ep, rank=rank,
+                    world=world, batch_size=args.batch_size,
+                    repeated_aug=False, train=True, seed=args.seed,
+                    out_size=out_size, **aug)
             else:
                 feed = device_feed(make_epoch_loader(
-                    ds_train, epoch=ep, rank=0, world=1,
+                    ds_train, epoch=ep, rank=rank, world=world,
                     batch_size=args.batch_size, repeated_aug=False,
                     train=True, seed=args.seed,
                     num_workers=args.num_workers if not args.tiny_test
@@ -235,7 +244,7 @@ def main(args):
     ckpt.save_checkpoint(os.path.join(args.output_dir, "model_finetuned"),
                          params=best_params,
                          meta={"exported": True, "acc1": best, **meta})
-    ckpt.wait_for_pending_saves()
+    ckpt.commit_saves("dense swin checkpoints committed")
     master_print(f"dense swin done: best acc1 {best:.2f} in "
                  f"{time.strftime('%H:%M:%S', time.gmtime(time.time() - t0))}")
     return state, best_params

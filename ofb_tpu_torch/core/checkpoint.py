@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..models.search_space import ArchState
+from ..parallel.distributed import barrier_sync
 from ..utils.logging import is_main_process
 from .msgpack import read_tree
 from .optim import LrScaleState, set_count
@@ -181,6 +182,13 @@ def wait_for_pending_saves():
         _PENDING.clear()
     for t in pending:
         t.join()
+
+
+def commit_saves(name: str = "checkpoints committed") -> None:
+    """Join the async writer, then fence the ranks: after this every rank
+    may read what rank 0 wrote (a no-op fence without a process group)."""
+    wait_for_pending_saves()
+    barrier_sync(name)
 
 
 def latest_meta(path: str) -> Optional[Dict[str, Any]]:

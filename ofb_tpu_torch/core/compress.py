@@ -19,6 +19,11 @@ read is a synchronisation) and only the small rewritten tensors go back,
 written in place under `no_grad`: the step and the optimizer state hold
 references to these very tensors by name, so none is replaced.
 
+Under a process group the decision inputs (alphas, scores, arch state)
+are first broadcast from rank 0, so every rank takes rank 0's decisions and
+rewrites the same tensors: the consensus that the reference reaches by
+averaging the alphas across ranks and the JAX package by replicated SPMD.
+
 The per-stage residual widths of a Swin supernet (`stage_embeds`) take the
 1-D machinery of the ViT embed, with the score at
 `stages.<s>.embed_score`; a Swin block's scores sit under
@@ -35,6 +40,7 @@ import torch
 
 from ..models.search_space import (ArchState, AttnSpace, DimSpace,
                                    SearchSpace)
+from ..parallel.distributed import broadcast_
 from .optim import zero_adam_moments
 
 
@@ -278,7 +284,11 @@ def compress(params, alphas, arch: ArchState, opt_state,
     zero_names: List[str] = []
 
     mods = list(_modules(params, alphas, arch, space))
-    host = iter(fetch_host([t for m in mods for t in m.device_tensors()]))
+    inputs = [t for m in mods for t in m.device_tensors()]
+    # consensus: every rank decides on rank 0's inputs (the data-parallel
+    # step already keeps them bit-identical across the ranks)
+    broadcast_(inputs)
+    host = iter(fetch_host(inputs))
     for m in mods:
         m.take(host)
 

@@ -30,6 +30,14 @@ batches and runs the train transform (`ops/augment.py`) on the device
 before the forward. A `teacher_apply(images) -> logits` adds the
 distillation loss of `scfg.distillation` (search) or `distill` (train).
 
+Under a process group (`parallel/`) the steps are data parallel: each rank
+takes its rows of the global batch, every random draw is the global
+batch's (`parallel.mesh.draw_rows`) and randomness handed in is the global
+microbatch's, of which the step takes this rank's rows; Mixup pairs across
+ranks; the decoder weight, the gradients and the metrics are the global
+batch's (`_accumulate`'s all-reduce). A world of N then takes the step one
+process takes on the concatenated batch.
+
 `make_planned_search_step` / `make_planned_train_step` are the steps of the
 planned epoch: the epoch's index plan on the device, everything of an
 iteration (the schedules, the gather from the uint8 cache, the augment, the
@@ -55,6 +63,8 @@ from ..models.search_space import ArchState, SearchSpace
 from ..models.vit import ModelCfg, ViT, vit_forward
 from ..ops.augment import apply_train_augment, draw_train_augment
 from ..ops.mixup import apply_mixup, mixup_draws as draw_mixup
+from ..parallel.distributed import all_mean_, gather_rows
+from ..parallel.mesh import draw_rows, this_rank_rows
 from . import losses as L
 from .optim import named_leaves
 
@@ -114,10 +124,12 @@ def _augmenter(fused_augment, out_size, use_randaug, re_prob, crop_scale,
         out = []
         for a in range(images.shape[0]):
             x = images[a].to(dev)
-            d = draws[a] if draws is not None else draw_train_augment(
-                generator, x.shape[0], x.shape[1], out_size,
-                use_randaug=use_randaug, re_prob=re_prob,
-                crop_scale=crop_scale, hflip=hflip, device=dev)
+            d = this_rank_rows(draws[a]) if draws is not None else draw_rows(
+                lambda n: draw_train_augment(
+                    generator, n, x.shape[1], out_size,
+                    use_randaug=use_randaug, re_prob=re_prob,
+                    crop_scale=crop_scale, hflip=hflip, device=dev),
+                x.shape[0])
             out.append(apply_train_augment(x, d, out_size=out_size))
         return torch.stack(out)
 
@@ -127,7 +139,11 @@ def _augmenter(fused_augment, out_size, use_randaug, re_prob, crop_scale,
 def _mixed(images, labels, generator, draws, mix, *, num_classes,
            mixup_alpha, cutmix_alpha):
     """Mixup / CutMix of one microbatch: with the draws handed in, else
-    with draws from `generator` (which must then be given)."""
+    with draws from `generator` (which must then be given). Each image's
+    partner is its mirror in the global microbatch (row B-1-i), so under
+    data parallelism the ranks gather the global microbatch, mix it with
+    the global batch's draws and keep their own rows."""
+    images, labels = gather_rows(images), gather_rows(labels)
     if draws is None:
         if generator is None:
             raise ValueError("Mixup needs a `generator` to draw from, or "
@@ -138,14 +154,19 @@ def _mixed(images, labels, generator, draws, mix, *, num_classes,
                            cutmix_minmax=mix.cutmix_minmax, prob=mix.prob,
                            switch_prob=mix.switch_prob, mode=mix.mode,
                            device=images.device)
-    return apply_mixup(images, labels, draws, num_classes=num_classes,
-                       mode=mix.mode, label_smoothing=mix.label_smoothing)
+    images, labels = apply_mixup(images, labels, draws,
+                                 num_classes=num_classes, mode=mix.mode,
+                                 label_smoothing=mix.label_smoothing)
+    return this_rank_rows(images), this_rank_rows(labels)
 
 
 def _accumulate(leaves, A, micro):
     """Run `micro(a)` -> (loss, metrics) and backward for a in range(A);
     returns ({name: mean gradient}, {metric: mean}). A leaf no microbatch
-    reached gets a zero gradient (Adam still decays its moments)."""
+    reached gets a zero gradient (Adam still decays its moments). Under a
+    process group the gradients and metrics are then averaged over the
+    ranks, in one flat all-reduce: every rank holds the global batch's
+    mean, as JAX's replicated step does."""
     for p in leaves.values():
         p.grad = None
     sums: Dict[str, torch.Tensor] = {}
@@ -157,7 +178,9 @@ def _accumulate(leaves, A, micro):
     grads = dict(zip(leaves, torch._foreach_div(
         [p.grad if p.grad is not None else torch.zeros_like(p)
          for p in leaves.values()], float(A))))
-    return grads, {k: v / A for k, v in sums.items()}
+    metrics = {k: v / A for k, v in sums.items()}
+    all_mean_(list(grads.values()) + list(metrics.values()))
+    return grads, metrics
 
 
 def _apply(leaves, updates, ema_params, params, ema_decay):
@@ -250,10 +273,13 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
                 w_embedding=scfg.w_embedding, w_flops=scfg.w_flops,
                 entropy=scfg.entropy, var=scfg.var, norm=scfg.norm)
             dec = out.decoder_loss
-            # dynamic decoder weight w = base / dec; its gradient flows
-            # into the decoder loss only
-            w_dec = torch.where(dec > 0, base / dec.clamp_min(1e-12),
-                                0.0).detach()
+            # dynamic decoder weight w = base / dec of the global batch
+            # (the ranks' means averaged); its gradient flows into the
+            # decoder loss only
+            pair = torch.stack([base, dec]).detach()
+            all_mean_([pair])
+            w_dec = torch.where(pair[1] > 0,
+                                pair[0] / pair[1].clamp_min(1e-12), 0.0)
             total = total + arch_loss + w_dec * dec
             metrics.update(loss_arch=arch_loss, loss_decoder=dec,
                            searched_gflops=aux["searched_gflops"])
@@ -272,7 +298,8 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
         def micro(a):
             return loss_fn(
                 state, images[a], labels[a], generator, keep_ratio,
-                token_masks[a] if token_masks is not None else None,
+                this_rank_rows(token_masks[a]) if token_masks is not None
+                else None,
                 mixup_draws[a] if mixup_draws is not None else None)
 
         grads, metrics = _accumulate(leaves, A, micro)

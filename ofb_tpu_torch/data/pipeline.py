@@ -102,12 +102,16 @@ def epoch_plan(n: int, *, epoch: int, rank: int, world: int,
                seed: int) -> np.ndarray:
     """(num_batches, batch_size) indices of one epoch: repeated-augmentation
     sampling for training (when on), the distributed sampler otherwise;
-    training drops the last partial batch."""
+    training drops the last partial batch, evaluation pads it. A rank whose
+    eval shard is smaller than one batch takes it as one smaller batch
+    (`epoch_batches` cannot pad a batch out of fewer indices)."""
     if train and repeated_aug:
         idx = ra_indices(n, epoch, rank, world, seed=seed)
     else:
         idx = distributed_indices(n, epoch, rank, world, shuffle=train,
                                   seed=seed)
+    if not train:
+        batch_size = min(batch_size, max(len(idx), 1))
     return epoch_batches(idx, batch_size, drop_last=train)
 
 

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..ops import gates as G
 from ..ops import pmim
+from ..parallel.mesh import draw_rows
 from .search_space import (ArchState, SearchSpace, SpaceTensors,
                            space_tensors)
 from .vit import (ModelCfg, ViT, _attend, dropout, drop_path, linear,
@@ -280,7 +281,9 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
     one, drop-path and dropout are off, as in the JAX package without an
     rng, and a PMIM forward that is handed no `token_mask` either raises
     (the JAX package cannot run there at all): torch's global generator is
-    never used. `token_mask` (B, L), 1 = removed, replaces the drawn mask.
+    never used. Under data parallelism each draw is the global batch's,
+    of which x holds this rank's rows (`parallel.mesh.draw_rows`).
+    `token_mask` (B, L), 1 = removed, replaces the drawn mask.
     `gate_fold` picks where the gates multiply: the weights (default) or
     the activations."""
     masked = train and use_mim and hasattr(params, "mask_token")
@@ -317,9 +320,9 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
     if masked:
         if token_mask is None:
             L = cfg.num_patches
-            mask = pmim.random_token_mask(B, L, pmim.keep_count(L, keep_ratio),
-                                          generator=generator,
-                                          device=x.device)
+            keep = pmim.keep_count(L, keep_ratio)
+            mask = draw_rows(lambda n: pmim.random_token_mask(
+                n, L, keep, generator=generator, device=x.device), B)
         else:
             mask = token_mask.to(device=x.device, dtype=torch.float32)
         tm = mask[..., None].to(tok.dtype)

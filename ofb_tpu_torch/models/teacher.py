@@ -9,6 +9,8 @@ Port of ofb_tpu/models/teacher.py. A teacher is a frozen callable,
     `teacher_path` or a seeded random init;
   * a registry DeiT / ViT name: a dense ViT, from a timm state dict through
     `torch_import` or a seeded random init;
+  * a registry dense Swin name: a Swin from a seeded random init, run
+    through `swin.swin_forward` in eval mode;
   * a directory: a checkpoint of an exported model (its `model_cfg` in
     the meta), the port's or the JAX package's. A finetune's `best` holds
     the better of its raw and EMA weights as `params` (its meta names the
@@ -16,7 +18,8 @@ Port of ofb_tpu/models/teacher.py. A teacher is a frozen callable,
     EMA weights when it has them, else its params.
 
 No weights are downloaded: without `teacher_path` the weights come from a
-seed, as in the JAX package.
+seed, as in the JAX package. The returned callable keeps its frozen model
+as `teacher_apply.model`.
 """
 
 from __future__ import annotations
@@ -34,14 +37,18 @@ from .vit import ModelCfg, ViT, vit_forward
 TEACHER_SEED = 7
 
 
-def _frozen_vit(params: ViT, cfg: ModelCfg, compute_dtype) -> Callable:
+def _frozen(params: torch.nn.Module, cfg, compute_dtype,
+            forward=vit_forward) -> Callable:
+    """teacher_apply(images) -> fp32 logits of `forward` (a dense ViT's or
+    Swin's) in eval mode, without gradients."""
     params.requires_grad_(False)
 
     @torch.no_grad()
     def teacher_apply(images):
-        return vit_forward(params, images, cfg, train=False,
-                           compute_dtype=compute_dtype)
+        return forward(params, images, cfg, train=False,
+                       compute_dtype=compute_dtype)
 
+    teacher_apply.model = params
     return teacher_apply
 
 
@@ -50,6 +57,9 @@ def _from_checkpoint(path: str, dev, compute_dtype) -> Callable:
     meta = ckpt.latest_meta(path)
     if meta is None:
         raise SystemExit(f"teacher_path {path}: no checkpoint meta.json found")
+    if meta.get("family") == "swin":
+        raise SystemExit("swin teacher checkpoints are not supported "
+                         "as KD teachers yet (vit/regnet only)")
     if "model_cfg" not in meta:
         raise SystemExit(f"teacher_path {path}: a teacher checkpoint is an "
                          "exported model with a model_cfg in its meta.json")
@@ -60,7 +70,7 @@ def _from_checkpoint(path: str, dev, compute_dtype) -> Callable:
     restored = ckpt.load_checkpoint(path, params=params, ema_params=ema)
     use = "params" if "eval_winner" in meta or "ema" not in restored \
         else "ema"
-    return _frozen_vit(restored[use], cfg, compute_dtype)
+    return _frozen(restored[use], cfg, compute_dtype)
 
 
 def build_teacher(name: str, *, teacher_path: str = "", num_classes: int,
@@ -90,10 +100,17 @@ def build_teacher(name: str, *, teacher_path: str = "", num_classes: int,
         raise SystemExit(
             f"teacher model '{name}' is neither a RegNetY "
             f"({'/'.join(REGNET_CFGS)}) nor a registry ViT/DeiT") from e
-    if bundle.kind != "dense":
+    if bundle.kind not in ("dense", "swin"):
         raise SystemExit(f"teacher model '{name}' is a searchable supernet; "
-                         "a teacher is a dense ViT/DeiT or a RegNetY")
+                         "a teacher is a dense ViT/DeiT/Swin or a RegNetY")
     params = bundle.init(TEACHER_SEED)
+    if bundle.kind == "swin":
+        if sd is not None:
+            raise SystemExit(f"teacher model '{name}': a Swin teacher comes "
+                             "from its seed; a timm state dict is read for "
+                             "a ViT/DeiT or a RegNetY only")
+        from .swin import swin_forward
+        return _frozen(params, bundle.cfg, compute_dtype, swin_forward)
     if sd is not None:
         torch_state_dict_to_params(sd, bundle.cfg, params)
-    return _frozen_vit(params, bundle.cfg, compute_dtype)
+    return _frozen(params, bundle.cfg, compute_dtype)

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..ops.attention import fused_mha
 from ..ops.gates import layer_norm
+from ..parallel.mesh import draw_rows
 
 
 @dataclass(frozen=True)
@@ -201,10 +202,14 @@ def patch_embed(weight, bias, x: torch.Tensor) -> torch.Tensor:
 def dropout(x, rate: float, train: bool, generator=None):
     """Inverted dropout; draws from `generator`. Without a generator there
     is no draw and x passes unchanged, as the JAX package's `dropout` does
-    without an rng: torch's global generator is never used."""
+    without an rng: torch's global generator is never used. Under data
+    parallelism the draw is the global batch's (`parallel.mesh.draw_rows`,
+    dim 0 the batch)."""
     if not train or rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = draw_rows(lambda n: torch.rand(
+        (n,) + tuple(x.shape[1:]), generator=generator, device=x.device),
+        x.shape[0]) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -213,8 +218,10 @@ def drop_path(x, rate: float, train: bool, generator=None):
     draw without a generator (see `dropout`)."""
     if not train or rate <= 0.0 or generator is None:
         return x
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    tail = (1,) * (x.dim() - 1)
+    keep = draw_rows(lambda n: torch.rand(
+        (n,) + tail, generator=generator, device=x.device),
+        x.shape[0]) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 

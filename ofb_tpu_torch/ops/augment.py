@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.pos_embed import resize_weights
+from ..parallel.mesh import draw_rows
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -545,12 +546,13 @@ def train_augment_batch(generator, images_u8: torch.Tensor, *,
                         color_jitter_strength: float = 0.4,
                         re_prob: float = 0.25, crop_scale=(0.08, 1.0),
                         hflip: bool = True) -> torch.Tensor:
-    """The train transform with parameters drawn from `generator`."""
-    draws = draw_train_augment(
-        generator, images_u8.shape[0], images_u8.shape[1], out_size,
+    """The train transform with parameters drawn from `generator` (this
+    rank's rows of the global batch's draws under data parallelism)."""
+    draws = draw_rows(lambda n: draw_train_augment(
+        generator, n, images_u8.shape[1], out_size,
         use_randaug=use_randaug, color_jitter_strength=color_jitter_strength,
         re_prob=re_prob, crop_scale=crop_scale, hflip=hflip,
-        device=images_u8.device)
+        device=images_u8.device), images_u8.shape[0])
     return apply_train_augment(images_u8, draws, out_size=out_size)
 
 

@@ -3,8 +3,8 @@ and the main-process print.
 
 Port of ofb_tpu/utils/logging.py, with the same files, keys and nesting, so
 `scripts/prune_timeline.py`, `scripts/run_status.py` and
-`scripts/frontier.py` read the port's runs unchanged. The port runs one
-process; rank 0 writes when torch.distributed is up.
+`scripts/frontier.py` read the port's runs unchanged. Under a process
+group (`parallel/`) rank 0 alone prints and writes.
 """
 
 from __future__ import annotations

@@ -262,14 +262,25 @@ def test_eval_matches_jax_eval_script(runs):
 
 
 @pytest.mark.parametrize("flag", [["--world_size", "2"]])
-def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(search, SEARCH + ["--device", "cpu", "--output_dir",
-                                str(tmp_path)] + flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(finetune, ["--data-set", "SYNTHETIC", "--tiny-test",
-                         "--device", "cpu", "--output_dir",
-                         str(tmp_path)] + flag)
+def test_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """--world_size raised while the multi-GPU slice was missing; it is now
+    the JAX CLIs' [compat] no-op: without a launcher the world is one
+    process, whatever the flag says."""
+    for k in ("RANK", "WORLD_SIZE", "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
+    _, text = _port(search, SEARCH + ["--device", "cpu", "--epochs", "1",
+                                      "--output_dir", str(tmp_path / "s")]
+                    + flag)
+    assert "rank 0 of world 1, backend none" in text
+    assert len(ck_epoch_lines(text)) == 1
+    _, text = _port(finetune, ["--data-set", "SYNTHETIC", "--tiny-test",
+                               "--synthetic-size", "64", "--epochs", "1",
+                               "--batch-size", "32", "--compute-dtype",
+                               "float32", "--num_workers", "0",
+                               "--device", "cpu", "--output_dir",
+                               str(tmp_path / "f")] + flag)
+    assert "rank 0 of world 1, backend none" in text
+    assert len(ck_epoch_lines(text)) == 1
 
 
 def _pretrained(path):

@@ -15,7 +15,12 @@ fp32, from the same weights:
   registry DeiT through `torch_import`, a port checkpoint directory (its
   EMA weights, or a finetune's eval winner), and a JAX package checkpoint
   directory (a finetune's best: its eval winner, JAX's logits within 1e-5
-  of their largest magnitude).
+  of their largest magnitude);
+* a dense Swin name (`swin_tiny_patch4_window7_224`): the port's seeded
+  teacher, its weights replaced by those of JAX's `build_teacher` (seed 7,
+  carried over with `from_jax`), gives JAX's fp32 logits within 1e-5 of
+  their largest magnitude; a Swin checkpoint directory exits with the JAX
+  package's message.
 """
 
 import dataclasses
@@ -361,3 +366,44 @@ def deit_cfg():
     from ofb_tpu_torch.models.registry import create_model
     return create_model("deit_tiny_patch16_224", num_classes=10,
                         device="cpu").cfg
+
+
+SWIN_T = "swin_tiny_patch4_window7_224"
+
+
+def test_dense_swin_teacher_matches_jax():
+    from ofb_tpu.models import registry as JReg
+    from ofb_tpu.models.teacher import build_teacher as jax_build_teacher
+    from ofb_tpu.parallel.mesh import make_mesh
+    x = np.random.RandomState(0).rand(1, 224, 224, 3).astype(np.float32)
+    jt = jax_build_teacher(SWIN_T, num_classes=10, mesh=make_mesh(),
+                           compute_dtype=jnp.float32)
+    want = np.asarray(jt(jnp.asarray(x)))
+    assert want.shape == (1, 10)
+    t = build_teacher(SWIN_T, num_classes=10, compute_dtype=torch.float32,
+                      device="cpu")
+    seeded = t(torch.from_numpy(x))
+    assert seeded.shape == (1, 10) and torch.isfinite(seeded).all()
+    assert not any(p.requires_grad for p in t.model.parameters())
+    # JAX's teacher weights: the registry's init at the teacher seed
+    jparams = JReg.create_model(SWIN_T, num_classes=10).init(
+        jax.random.PRNGKey(7))
+    load_from_jax(t.model, np_tree(jparams))
+    got = t(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_swin_checkpoint_teacher_is_refused(tmp_path):
+    from ofb_tpu_torch.models import swin as SW
+    cfg = SW.SwinCfg(img_size=32, patch_size=2, num_classes=10, embed_dim=24,
+                     depths=(1, 1), num_heads=(2, 4), window=4,
+                     mlp_ratio=2.0)
+    d = str(tmp_path / "swin_ft")
+    ck.save_checkpoint(d, params=SW.Swin(cfg), meta={
+        "family": "swin", "exported": True,
+        "model_cfg": dataclasses.asdict(cfg)})
+    with pytest.raises(SystemExit, match="swin teacher checkpoints are not "
+                       "supported as KD teachers yet"):
+        build_teacher("ignored", teacher_path=d, num_classes=10,
+                      device="cpu")
