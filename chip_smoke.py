@@ -17,7 +17,10 @@ which raises (and so exits non-zero) on failure:
      element into a wider buffer (no row 16-byte aligned);
      the streaming body at DeiT-S and DeiT-B at 384 pixels (577 tokens),
      ragged token counts up to 1025, 8 * odd head dims at 577 and, named,
-     at 1, 17 and 197 tokens; every output finite;
+     at 1, 17 and 197 tokens; every output finite; then the streaming
+     pair's determinism at DeiT-S-384 and ViT-H/14 (STREAM_REPEAT): a
+     second call, and a CUDA graph of forward + backward replayed, equal
+     the first eager call bit for bit;
   3. timing: both bodies of each kernel with CUDA events at batch 256, in
      turns (general, resident, resident, general), beside the bound, the
      plain twin and torch's scaled_dot_product_attention (timed here as a
@@ -30,10 +33,12 @@ which raises (and so exits non-zero) on failure:
      pixels, and an exported subnet's 2 x 24 head) the general and the
      streaming bodies in turns the same way, beside the twin, SDPA, the
      bytes and the operations bounds; the streaming body must be the
-     faster at DeiT-S. Then each attention shape of the ViT family
-     (VIT_SHAPES: ViT-H/14, ViT-L/16 at 384, the 8 x 96 vit_small, ViT-B/16
-     and /32) at the batch of phase 10's runs: its body, the twin and SDPA
-     beside the bound; and the general body in fp32, the type it serves,
+     faster at DeiT-S (its ratio to SDPA is printed, not asserted: timing
+     noise across cards would fail honest runs). Then each attention shape
+     of the ViT family (VIT_SHAPES: ViT-H/14, ViT-L/16 at 384, the 8 x 96
+     vit_small, ViT-B/16 and /32) at the batch of phase 10's runs: its
+     body, the twin and SDPA beside the bound; and the general body in
+     fp32, the type it serves,
      at DeiT-S at 224 and 384 pixels beside the twin, SDPA in fp32 and the
      fp32 bound (the CUDA cores' 67 TFLOP/s), its ratios to SDPA and to the
      bound printed; it must be faster than the twin by device time there;
@@ -206,20 +211,22 @@ GENERAL = [DEIT_S, (2, 257, 2, 64), (2, 577, 2, 64)] + RAGGED + SUBNET \
 # ... and as views whose rows start one element into a wider buffer, so that
 # no row is 16-byte aligned (the 4-byte copies of the fp32 kernels)
 GENERAL_UNALIGNED = SMALL_HEADS + [(2, 197, 2, 64), (3, 17, 2, 40)]
-# the streaming body: DeiT-S and DeiT-B at 384 pixels (577 = 9 x 64 + 1:
-# one valid key in the last tile), ragged token counts (1025 walks 17 key
-# tiles through a ring of 3 or 4), an exported subnet's head dims at 577 (24,
-# 40, 56 pad to 32, 48, 64; 72 and 120 to 80 and 128, the 128-column
-# kernels) and, asked for by name, counts the resident body serves
+# the streaming body: DeiT-S and DeiT-B at 384 pixels (577 = 4 x 128 + 65
+# keys in the forward's tiles, 9 x 64 + 1 in the backward's), ragged token
+# counts (1025 = 8 x 128 + 1: the forward's 16-key last tile; 17 backward
+# tiles through rings of 6 and 8), an exported subnet's head dims at 577
+# (24, 40, 56 in one 64-column panel; 72 and 120 with tails of 16 and 64
+# columns) and, asked for by name, counts the resident body serves
 STREAMING = [(64, 577, 6, 64), (16, 577, 12, 64), (2, 257, 2, 64),
              (2, 300, 2, 64), (2, 385, 3, 32), (2, 1025, 2, 64),
              (2, 577, 2, 24), (2, 577, 2, 40), (2, 577, 2, 56),
              (2, 577, 2, 72), (2, 577, 2, 120), (3, 1, 2, 64),
              (3, 17, 2, 40), (2, 197, 6, 64)]
 # the ViT family's attention shapes at the batches of phase 10's runs, and
-# the body that serves each in bf16: ViT-H/14 at 224 (d 80 in 128-column
-# tiles), ViT-L/16 at 384, the JAX package's vit_small (8 x 96, the resident
-# dq + dk/dv backward), ViT-B/16, ViT-B/32 at 384 and at 224
+# the body that serves each in bf16: ViT-H/14 at 224 (d 80: a 64-column
+# panel and a 16-column tail), ViT-L/16 at 384, the JAX package's
+# vit_small (8 x 96, the resident dq + dk/dv backward), ViT-B/16, ViT-B/32
+# at 384 and at 224
 VIT_SHAPES = [((32, 257, 16, 80), "streaming"),
               ((32, 577, 16, 64), "streaming"),
               ((64, 197, 8, 96), "resident"), ((64, 197, 12, 64), "resident"),
@@ -492,6 +499,56 @@ def check_kernels(A):
     return main_err
 
 
+# the streaming body's repeat and graph-replay checks (phase 2): DeiT-S at
+# 384 pixels (batch 64) and ViT-H/14 (d = 80: the 16-column tail, and 257 =
+# 2 x 128 + 1 tokens: the forward's 16-key last tile)
+STREAM_REPEAT = [(64, 577, 6, 64), (32, 257, 16, 80)]
+
+
+def check_streaming_repeats(A):
+    """Phase 2, continued: the streaming pair is deterministic. Two eager
+    forward + backward calls on the same inputs give bit-identical o, lse,
+    dq, dk and dv, and the same pair captured in a CUDA graph and replayed
+    gives the eager outputs bit for bit (the tensor maps are encoded from
+    the captured call's own pointers)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    names = ("o", "lse", "dq", "dk", "dv")
+    for shape in STREAM_REPEAT:
+        q, k, v = make_qkv(*shape, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+
+        def pair():
+            o, lse = A.attention_fwd(q, k, v, body="streaming")
+            return (o, lse) + A.attention_bwd(q, k, v, o, lse, do,
+                                              body="streaming")
+        first, second = pair(), pair()
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pair()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = pair()
+        graph.replay()
+        torch.cuda.synchronize()
+        for what, got in (("a second eager call", second),
+                          ("the graph replay", captured)):
+            differ = [n for n, a, b in zip(names, first, got)
+                      if not torch.equal(a, b)]
+            if differ:
+                raise AssertionError(
+                    f"streaming body at {shape}: {what} differs from the "
+                    f"first eager call in {differ}")
+        del graph
+        log(f"kernels streaming {shape} bf16: a second call and a CUDA "
+            f"graph replay of forward + backward equal the first call bit "
+            f"for bit (o, lse, dq, dk, dv)")
+
+
 def time_kernels(A):
     """Phase 3: ms of both bodies of each kernel, the twin and SDPA at
     batch 256, bf16, on this one card; the bodies in turns (general,
@@ -711,7 +768,12 @@ def time_streaming(A):
             f"bytes {row[n + '_bytes_bound_ms']:.4f}, operations "
             f"{row[n + '_ops_bound_ms']:.4f})" for n in ("fwd", "bwd"))
             + f"; the streaming backward's own floor "
-            f"{row['bwd_design_floor_ms']:.4f} ms")
+            f"{row['bwd_design_floor_ms']:.4f} ms; streaming over SDPA: "
+            + ", ".join(
+                f"{n} {row[f'{n}_streaming_ms'] / row[f'{n}_sdpa_ms']:.3f} ("
+                + format(row[f"{n}_streaming_device_ms"]
+                         / row[f"{n}_sdpa_device_ms"], ".3f") + ")"
+                for n in ("fwd", "bwd")) + " (events (device); not asserted)")
         if (B, N, H, d) != STREAM_TIMING[0]:
             continue
         for n in ("fwd", "bwd"):
@@ -776,7 +838,9 @@ def _time_row(row, calls, what):
         f"{n} " + ", ".join(
             f"{b} {row[f'{n}_{b}_ms']:.4f} ({row[f'{n}_{b}_device_ms']:.4f})"
             for b in ("kernel", "plain", "sdpa"))
-        + f", bound {row[n + '_bound_ms']:.4f} ({row[n + '_bound_by']})"
+        + f", bound {row[n + '_bound_ms']:.4f} ({row[n + '_bound_by']}), "
+        f"kernel over SDPA {row[f'{n}_kernel_ms'] / row[f'{n}_sdpa_ms']:.3f} "
+        f"({row[f'{n}_kernel_device_ms'] / row[f'{n}_sdpa_device_ms']:.3f})"
         for n in ("fwd", "bwd")))
 
 
@@ -2725,6 +2789,7 @@ def main():
         return out
 
     errs = timed("2", check_kernels, A)
+    timed("2 repeats", check_streaming_repeats, A)
     times = timed("3", time_kernels, A)
     subnet_times = timed("3 subnet", time_subnet_shapes, A)
     stream_times, stream_fields = timed("3 streaming", time_streaming, A)

@@ -20,11 +20,14 @@ in `wgmma` registers; it takes bf16, up to 256 tokens, head dims that are a
 multiple of 8 up to 128 (8 * odd ones, such as the 24, 40 and 56 of
 exported subnets, run zero-padded to the next multiple of 16 in shared
 memory) and rows that start on 16 bytes. `streaming` (csrc/
-*_streaming.cu) keeps 64 or 128 query rows (or keys) of a head in shared
-memory and streams the other side through a ring of 64-row tiles, with an
-online softmax in `wgmma` registers; it takes what the resident body takes
-at any token count and serves more than 256 tokens (DeiT at 384 pixels:
-577).
+*_streaming.cu, sm90_tma.cuh) runs a persistent block an SM: a producer
+warp loads 128 query rows (or keys) of a head and streams the other side
+by TMA through an mbarrier ring, and two consumer warpgroups run `wgmma`
+(taking turns in the backward), with an online softmax in registers; it
+takes what the resident body takes at any token count and serves more than
+256 tokens (DeiT at 384 pixels: 577). Its tensor maps are encoded at every
+call from the call's own pointers through the driver's
+cuTensorMapEncodeTiled; a refused map raises.
 `general` (csrc/attention_fwd.cu, attention_bwd.cu) takes every shape,
 type and head dim in [1, 128] the wrappers accept; it serves what the other
 two do not: fp32 (FMA on the CUDA cores: register tiles of scores, 8 x 8
@@ -50,6 +53,8 @@ import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232448                 # bytes of shared memory a Hopper block may use
+# return codes of the streaming entries beyond CUDA's (csrc/sm90_tma.cuh)
+_ENCODE_FAILED, _NO_ENCODER = 1000, 2000
 
 
 # ---------------------------------------------------------------------------
@@ -140,13 +145,16 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     multiple of 8 in [8, 128] and aligned rows take the resident body for
     1 <= N <= 256 and the streaming body above; everything else the general
     body. The numbers repeat the arithmetic of csrc/attention_*_resident.cu
-    and csrc/attention_*_streaming.cu: tiles of 64 head-dim columns when
-    d16 = 16 * ceil(d / 16) <= 64, else 128; 1024 bytes of alignment slack.
+    (tiles of 64 head-dim columns when d16 = 16 * ceil(d / 16) <= 64, else
+    128) and csrc/attention_*_streaming.cu (`_streaming_body`); 1024 bytes
+    of alignment slack.
     The resident forward pads the keys to 64 * ceil(N / 64), or to 208 for
     192 < N <= 208; its backward is one fused kernel for d16 <= 64 (q, k, v,
     do, o in whole 64-row tiles, three output stages, lse and delta) and a
     dq and a dk/dv kernel above (the resident side padded to 16). The
-    streaming body walks the keys in tiles of 64; so does the general one
+    streaming body's count is 64 * ceil(N / 64), the tiles its backward
+    walks (its forward walks 128-key tiles, the last one narrow when it
+    holds up to 16 keys); the general body walks tiles of 64 too
     (`_general_body`)."""
     if dtype != torch.bfloat16 or N < 1 or d % 8 != 0 \
             or not 8 <= d <= 128 or not aligned:
@@ -155,7 +163,7 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     tile = 64 * dp * 2                                   # 64 rows, bf16
     rows64 = 64 * -(-N // 64)                            # whole 64-row tiles
     if N > 256:
-        return _streaming_body(rows64, dp, tile)
+        return _streaming_body(rows64, d)
     keys = 208 if 192 < N <= 208 else rows64
     fwd = 2 * keys * dp * 2 + 2 * tile + 1024            # k, v; 2 q buffers
     if dp == 64:
@@ -184,14 +192,39 @@ def _general_body(N: int, d: int) -> Body:
     return Body("general", 64 * -(-N // 64), fwd, dq + 4 * 4 * 64)
 
 
-def _streaming_body(keys: int, dp: int, tile: int) -> Body:
-    """The streaming body's shared memory: resident rows (128 of q; 64 of q
-    and do with their lse and delta; 128 of k and v) and a ring of 64-row
-    tiles (four stages of k and v; three of k and v; three of q, do and
-    their 64 lse and delta in 1024 bytes)."""
-    fwd = 128 * dp * 2 + 4 * 2 * tile + 1024
-    dq = 2 * tile + 3 * 2 * tile + 2 * 64 * 4 + 1024
-    dkdv = 2 * 128 * dp * 2 + 3 * (2 * tile + 1024) + 1024
+def streaming_tail(d: int) -> int:
+    """Columns of the streaming body's tail panel for head dim d: its tiles
+    are a 64-column panel and, for d16 = 16 * ceil(d / 16) above 64, a tail
+    of 16 (d16 = 80, ViT-H/14's d = 80), 32 (96) or 64 columns (112, 128),
+    each with its own TMA box and swizzle (csrc/sm90_tma.cuh `tail_width`)."""
+    d16 = 16 * -(-d // 16)
+    return 0 if d16 <= 64 else 16 if d16 == 80 else 32 if d16 == 96 else 64
+
+
+def _streaming_body(keys: int, d: int) -> Body:
+    """The streaming body's shared memory (csrc/attention_*_streaming.cu):
+    tiles of 64 (or 128) rows of 64 + tail columns (`streaming_tail`),
+    8-byte mbarriers, 1024 bytes of alignment slack. The forward holds two
+    query buffers of two 64-row tiles (one a consumer warpgroup) and a ring
+    of K, V stages of 128 keys (four at d16 <= 80, three at 96, two at 128;
+    4 + 3 a stage barriers). The dq kernel holds q, do and o of both
+    consumers in two buffers (one at a tail of 64) and a ring of 64-key K,
+    V stages (six at d16 <= 64, four at 80, else three; 4 + 2 a stage
+    barriers); the dk/dv kernel k and v of both consumers in as many
+    buffers and a ring of Q, dO and their 64 lse and delta (1024 bytes; 8
+    stages at d16 <= 64, 6 at 80, else 4)."""
+    tw = streaming_tail(d)
+    tile = 64 * 2 * (64 + tw)
+    buffers = 2 if tw <= 32 else 1
+    fwd_stages = 4 if tw <= 16 else 3 if tw == 32 else 2
+    dq_stages = 6 if tw == 0 else 4 if tw == 16 else 3
+    kv_stages = 8 if tw == 0 else 6 if tw == 16 else 4
+    fwd = tile * 2 * 2 + 2 * tile * 2 * fwd_stages \
+        + 8 * (4 + 3 * fwd_stages) + 1024
+    dq = tile * (3 * 2 * buffers + 2 * dq_stages) \
+        + 8 * (4 + 2 * dq_stages) + 1024
+    dkdv = tile * 2 * 2 * buffers + (2 * tile + 1024) * kv_stages \
+        + 8 * (4 + 2 * kv_stages) + 1024
     return Body("streaming", keys, fwd, max(dq, dkdv))
 
 
@@ -248,6 +281,13 @@ def _launch(wrapper, which: str, body, tensors, outs, dims):
     if rc == -1:
         raise ValueError(f"the {body} attention body does not take shape "
                          f"{tuple(q.shape)}, {q.dtype}, strides {q.stride()}")
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(
+            f"attention {which} kernel ({body}): " + (
+                "the driver has no cuTensorMapEncodeTiled"
+                if rc == _NO_ENCODER else "the driver refused a tensor map "
+                f"(CUresult {rc - _ENCODE_FAILED}) for shape "
+                f"{tuple(q.shape)}, strides {q.stride()}"))
     if rc != 0:
         raise RuntimeError(f"attention {which} kernel ({body}) failed: "
                            f"CUDA error {rc}")

@@ -32,7 +32,7 @@ SOURCES = {
     "attention_fwd_streaming": "attention_fwd_streaming.cu",
     "attention_bwd_streaming": "attention_bwd_streaming.cu",
 }
-_HEADERS = ("attention_common.cuh", "sm90.cuh")
+_HEADERS = ("attention_common.cuh", "sm90.cuh", "sm90_tma.cuh")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

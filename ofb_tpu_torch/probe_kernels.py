@@ -11,7 +11,11 @@ general body in fp32, the type it serves, at N = 197), each variant in a
 process of its own, two rounds. The differences between variants say
 how long the copies, each pass and the alternatives take. A replacement
 whose text is no longer in the source fails the run, so a stale variant
-cannot pass unnoticed.
+cannot pass unnoticed. The streaming variants turn the knobs of its TMA /
+mbarrier / ping-pong design one at a time (ring depth, the setmaxnreg
+split, ping-pong off, the pipelining inside a warpgroup off, and at
+ViT-H/14's shape the forward's narrow last tile and the d = 80 tail off),
+and take out the forward's exponentials, products or loads.
 
 Usage: python -m ofb_tpu_torch.probe_kernels [resident] [streaming]
 [general] (every body's variants without arguments). Needs a CUDA device and nvcc.
@@ -29,6 +33,10 @@ from pathlib import Path
 # B, N, H, d at batch 256: DeiT-S at 224 and at 384 pixels
 SHAPES = {"resident": (256, 197, 6, 64), "streaming": (256, 577, 6, 64),
           "general": (256, 197, 6, 64)}
+# variants timed at another shape than their body's
+VARIANT_SHAPES = {n: (32, 257, 16, 80) for n in (
+    "stream_vit_h", "stream_vit_h_no_narrow_last_tile",
+    "stream_vit_h_no_d80_tail")}
 FWD = "attention_fwd_resident.cu"
 BWD = "attention_bwd_resident.cu"
 SFWD = "attention_fwd_streaming.cu"
@@ -75,26 +83,81 @@ RESIDENT_VARIANTS = {
     "fwd_three_blocks": [(FWD, _FWD_BOUNDS, _FWD_BOUNDS.replace(
         "(WG)", "(WG, (DP == 64 && CH * NCH <= 208) ? 3 : 1)"))],
 }
-_BWD_WGS = "constexpr int DQ_WGS = 1, KV_WGS = 2;"
+STMA = "sm90_tma.cuh"
+_TURNS = [(STMA, "  if (w == 1) bar_arrive(SCHED, 2 * WG);", ""),
+          (STMA, "  bar_sync(SCHED + w, 2 * WG);\n", ""),
+          (STMA, "  if (!(w == 1 && last)) bar_arrive(SCHED + (w ^ 1), 2 * WG);",
+           "")]
+_REGS = "constexpr int PRODUCER_REGS = 40;\nconstexpr int CONSUMER_REGS = 232;"
 STREAMING_VARIANTS = {
     "streaming_as_committed": [],
-    # one warpgroup (64 query rows) a forward block: K and V pass through
-    # L2 once for every 64 query rows instead of every 128
-    "stream_fwd_one_warpgroup": [(SFWD, "constexpr int WGS = 2;",
-                                  "constexpr int WGS = 1;")],
-    # K/V tiles copied one and three ahead (rings of three and five)
-    "stream_fwd_copies_1_ahead": [(SFWD, "constexpr int AHEAD = 2;",
-                                   "constexpr int AHEAD = 1;")],
-    "stream_fwd_copies_3_ahead": [(SFWD, "constexpr int AHEAD = 2;",
-                                   "constexpr int AHEAD = 3;")],
-    # the dq kernel at two warpgroups a block (one block an SM by
-    # registers), the dk/dv kernel at one
-    "stream_dq_two_warpgroups": [(SBWD, _BWD_WGS, _BWD_WGS.replace(
-        "DQ_WGS = 1", "DQ_WGS = 2"))],
-    "stream_dkdv_one_warpgroup": [(SBWD, _BWD_WGS, _BWD_WGS.replace(
-        "KV_WGS = 2", "KV_WGS = 1"))],
-    "stream_bwd_copies_2_ahead": [(SBWD, "DQ_AHEAD = 1, KV_AHEAD = 1",
-                                   "DQ_AHEAD = 2, KV_AHEAD = 2")],
+    # the forward's ring of 128-key K, V stages: 2 and 5 instead of 4
+    "stream_fwd_2_stages": [(SFWD, "  return TW <= 16 ? 4 : TW == 32 ? 3 : 2;",
+                             "  return TW <= 16 ? 2 : TW == 32 ? 3 : 2;")],
+    "stream_fwd_5_stages": [(SFWD, "  return TW <= 16 ? 4 : TW == 32 ? 3 : 2;",
+                             "  return TW <= 16 ? 5 : TW == 32 ? 3 : 2;")],
+    # the backward's rings at d16 <= 64: 4 stages of K, V (dq) and 4 of Q,
+    # dO (dk/dv) instead of 6 and 8
+    "stream_bwd_4_stages": [
+        (SBWD, "  return TW == 0 ? 6 : TW == 16 ? 4 : 3;",
+         "  return TW == 0 ? 4 : TW == 16 ? 4 : 3;"),
+        (SBWD, "  return TW == 0 ? 8 : TW == 16 ? 6 : 4;",
+         "  return TW == 0 ? 4 : TW == 16 ? 6 : 4;")],
+    # the register split: producer 24, consumers 240
+    "stream_regs_24_240": [(STMA, _REGS, _REGS.replace("40;", "24;").replace(
+        "232;", "240;"))],
+    # the backward's consumers issue as they come (no turns: ping-pong
+    # off), and the forward's take turns (ping-pong on)
+    "stream_no_pingpong": _TURNS,
+    "stream_fwd_pingpong": [(SFWD, "constexpr bool TURNS = false;",
+                             "constexpr bool TURNS = true;")],
+    # s of tile t and e v of tile t - 1 waited for together (the forward's
+    # and the dq kernel's pipelining inside a warpgroup off), and the dk/dv
+    # kernel's products after its scores
+    "stream_no_intra_wg_overlap": [
+        (SFWD, "      wgmma_wait<1>();                       // s of tile t",
+         "      wgmma_wait<0>();"),
+        (SBWD, "      wgmma_wait<1>();\n      fence_regs(s);",
+         "      wgmma_wait<0>();\n      fence_regs(s);"),
+        (SBWD, "kv_pipelined() { return TW < 64; }",
+         "kv_pipelined() { return false; }")],
+    # ViT-H/14's shape (N = 257 = 2 * 128 + 1, d = 80): as committed, with
+    # a full 128-key last tile instead of the 16-key one, and with d = 80
+    # in 128 columns (no 16-column tail)
+    "stream_vit_h": [],
+    "stream_vit_h_no_narrow_last_tile": [
+        (SFWD, "  const int narrow = rem == 0 ? 0 : rem <= 16 ? 1 : rem <= 80 ? 5 : 0;",
+         "  const int narrow = 0;")],
+    # DeiT-S-384 with a full 128-key last tile instead of the 80-key one
+    "stream_fwd_no_narrow_last_tile": [
+        (SFWD, "  const int narrow = rem == 0 ? 0 : rem <= 16 ? 1 : rem <= 80 ? 5 : 0;",
+         "  const int narrow = 0;")],
+    "stream_vit_h_no_d80_tail": [(STMA, "ks == 5 ? 16 :", "ks == 5 ? 64 :")],
+    # diagnostics, outputs wrong: the forward without its exponentials
+    # (ex2 -> its argument), without its e v products
+    "stream_fwd_no_exp": [
+        (SFWD, "const float x = ex2(fmaf(s[4 * j + c], LOG2E, -mx[c >> 1]));",
+         "const float x = fmaf(s[4 * j + c], LOG2E, -mx[c >> 1]);")],
+    # ... without its V loads, without its K and V loads (the ring's
+    # barriers still complete; the tiles hold stale data)
+    "stream_fwd_no_v_loads": [
+        (SFWD, """        mbar_expect(v_full(s), TK::BYTES);
+        tma_load(V, &maps.v, v_full(s), 0, KEYS * t, h, b);""",
+         """        mbar_arrive(v_full(s));""")],
+    "stream_fwd_no_kv_loads": [
+        (SFWD, """        mbar_expect(v_full(s), TK::BYTES);
+        tma_load(V, &maps.v, v_full(s), 0, KEYS * t, h, b);""",
+         """        mbar_arrive(v_full(s));"""),
+        (SFWD, """        mbar_expect(k_full(s), TK::BYTES);
+        tma_load(K, &maps.k, k_full(s), 0, KEYS * t, h, b);""",
+         """        mbar_arrive(k_full(s));""")],
+    # ... without its q kᵀ products
+    "stream_fwd_no_qk": [
+        (SFWD, """        wgmma_ss(sw, desc_k<TW>(Q, 0, kk), desc_k<TW, KEYS>(stage(st), 0, kk),
+                 kk > 0);""", """        (void)sw;""")],
+    "stream_fwd_no_pv": [
+        (SFWD, "        o.template mma<KEYS>(p[kk], V, 16 * kk, t > 0 || kk > 0);",
+         "        (void)V;")],
 }
 _GFWD = "OFB_FWD_F32(2, 8, 4, 2)"       # d <= 64: RM, warps, blocks an SM
 _GBWD = "OFB_BWD_F32(2, 4, 4, 2)"
@@ -166,7 +229,7 @@ def _time_variant(name: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    B, N, H, d = SHAPES[body]
+    B, N, H, d = VARIANT_SHAPES.get(name, SHAPES[body])
     dtype = torch.float32 if body == "general" else torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     buf = torch.randn((B, N, 3, H, d), generator=gen,

@@ -243,31 +243,53 @@ def test_resident_shared_memory_fits_a_block(d):
 def test_streaming_shared_memory_fits_a_block(d):
     """Every head dim the streaming body takes, at any token count, asks
     for no more shared memory than a Hopper block may have, and for what
-    its kernels lay out: resident rows (128 of q; 64 of q and do with their
-    lse and delta; 128 of k and v), a ring of 64-row tiles (four stages of
-    k and v in the forward, three in the dq kernel, three of q, do and
-    1024 bytes of their row terms in the dk/dv kernel), 1024 bytes of
-    slack.
-    Head dims 8 * odd lay out as the next multiple of 16; the keys walk in
-    whole tiles of 64."""
-    dp = 64 if d <= 64 else 128
-    tile = 64 * dp * 2
-    for N in (257, 300, 385, 577, 1025, 4097):
+    its kernels lay out (csrc/attention_*_streaming.cu): 64-row tiles of a
+    64-column panel and a tail of 0, 16, 32 or 64 columns, 8-byte mbarriers
+    and 1024 bytes of slack. The forward holds two query buffers of two
+    tiles and a ring of 128-key K, V stages (4, 4, 3 and 2 stages by tail);
+    the dq kernel q, do and o of two consumer warpgroups in two buffers
+    (one at a 64-column tail) and a ring of 64-key K, V stages (6, 4, 3,
+    3); the dk/dv kernel k and v in as many buffers and a ring of Q, dO and
+    1024 bytes of their lse and delta (8, 6, 4, 4). Head dims 8 * odd lay
+    out as the next multiple of 16; the keys walk in whole tiles of 64."""
+    tw = A.streaming_tail(d)
+    tile = 64 * 2 * (64 + tw)
+    fwd_stages, dq_stages, kv_stages = {0: (4, 6, 8), 16: (4, 4, 6),
+                                        32: (3, 3, 4), 64: (2, 3, 4)}[tw]
+    buffers = 2 if tw <= 32 else 1
+    fwd = 4 * tile + 2 * (2 * tile) * fwd_stages + 8 * (4 + 3 * fwd_stages) \
+        + 1024
+    dq = 6 * buffers * tile + 2 * tile * dq_stages + 8 * (4 + 2 * dq_stages) \
+        + 1024
+    dkdv = 4 * buffers * tile + (2 * tile + 1024) * kv_stages \
+        + 8 * (4 + 2 * kv_stages) + 1024
+    for N in range(257, 4098, 20):
         body = A.attention_body(N, d, BF16)
         assert body.name == "streaming"
         assert body.padded_keys == 64 * -(-N // 64) >= N
-        assert body.smem_fwd == 128 * dp * 2 + 4 * 2 * tile + 1024
-        assert body.smem_bwd == max(
-            2 * tile + 3 * 2 * tile + 2 * 64 * 4 + 1024,
-            2 * 128 * dp * 2 + 3 * (2 * tile + 1024) + 1024)
+        assert (body.smem_fwd, body.smem_bwd) == (fwd, max(dq, dkdv))
         assert 0 < body.smem_fwd <= A.MAX_SMEM
         assert 0 < body.smem_bwd <= A.MAX_SMEM
     deit = A.attention_body(577, 64, BF16)
-    assert (deit.smem_fwd, deit.smem_bwd) == (82944, 86016)
-    # two blocks of the forward or of either backward kernel fit an SM's
-    # 228 KB at d16 <= 64 (1 KB reserved a block), as their registers allow
-    assert 2 * (deit.smem_fwd + 1024) <= 228 * 1024
-    assert 2 * (deit.smem_bwd + 1024) <= 228 * 1024
+    assert (deit.smem_fwd, deit.smem_bwd) == (164992, 205984)
+    # one block an SM: a producer and two consumer warpgroups (384 threads
+    # at 168 registers) take the SM's registers, and either kernel's shared
+    # memory fits its 228 KB (1 KB reserved a block)
+    assert deit.smem_fwd + 1024 <= 228 * 1024
+    assert deit.smem_bwd + 1024 <= 228 * 1024
+
+
+@pytest.mark.parametrize("d,tail", [(d, 0) for d in range(8, 65, 8)]
+                         + [(72, 16), (80, 16), (88, 32), (96, 32),
+                            (104, 64), (112, 64), (120, 64), (128, 64)])
+def test_streaming_tail_columns(d, tail):
+    """The streaming body's tiles: d16 = 16 * ceil(d / 16) columns as a
+    64-column panel and a tail of d16 - 64 columns where a 32- or 64-byte
+    swizzle holds it (16: ViT-H/14's d = 80; 32), else a second 64-column
+    panel, so d = 80 runs in 80 columns, not 128."""
+    assert A.streaming_tail(d) == tail
+    d16 = 16 * -(-d // 16)
+    assert 64 + tail >= d16 and (tail in (0, 64) or 64 + tail == d16)
 
 
 @pytest.mark.parametrize("d", range(1, 129))
