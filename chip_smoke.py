@@ -158,12 +158,33 @@ which raises (and so exits non-zero) on failure:
      within twice the furthest such a leaf moved), the eval equal to one
      process's over the whole set; each
      rank's 24 + 24 step and 12 eval launches, resident. A process that
-     fails or outlasts DIST_TIMEOUT fails the phase.
+     fails or outlasts DIST_TIMEOUT fails the phase;
+ 13. tensor parallelism and remat (`--tp-step RANK WORLD RDZV OUT` runs a
+     rank): (a) two and (b) four ranks sharing the card over gloo (a
+     correctness run), each a (1, tp) mesh with DeiT-S (bf16, global batch
+     TP_BATCH) sharded on its model axis (heads 3 + 3; 2 + 2 + 1 + 1): a
+     search step, block 0's MLP alpha cell at -8 and a compress pass, a
+     post-prune step, a forced convergence and the export; against the
+     same sequence in one process on the card: the loss within
+     TOL_TP_LOSS and the gradient norm within TOL_TP_GRAD_NORM, the
+     updates of every qkv, proj, fc1 and fc2 weight and bias and of the
+     alphas of the same sign but for TOL_TP_FLIPS of their elements and
+     their difference within TOL_TP_REL, the same compress events and
+     export widths, and the rank's export within TOL_TP_EXPORT of one
+     process's; each rank's peak memory beside one process's; 24 + 24
+     resident launches a rank. Meanwhile the resident
+     pair against its twin at a rank's head counts (3, 2, 1 at N 197, d
+     64) and (d) `python -m ofb_tpu_torch.dryrun --devices 4 --tiny
+     --device cuda` exits 0. (c) the search step with `remat` against the
+     plain one, DeiT-S and DeiT-B at REMAT_BATCH from one seed: equal
+     after a step (ArchState bit-identical, the rest within TOL_GRAPH),
+     then ms a step in turns and each step's peak memory.
 
-The line before the last is the kernels' JSON (`launches` sums the nine
+The line before the last is the kernels' JSON (`launches` sums the ten
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
 `launches_cli`, `launches_384`, `launches_planned`, `launches_vit`,
-`launches_swin` (0) and `launches_dist` (phase 12's processes) give each;
+`launches_swin` (0), `launches_dist` (phase 12's processes) and
+`launches_tp` (phase 13's (a) to (c)) give each;
 the general body's times are fp32's); the
 last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -442,19 +463,22 @@ def uncancelled_scales(q, k, v, do):
             1e-30)
 
 
-def check_kernels(A):
+def check_kernels(A, cases=None):
     """Phase 2. Returns the max abs errors of the resident body at the
     search step's shape and type (DeiT-S, bf16), of the general body at
     that shape in fp32 (the type it serves) and of the streaming body at
-    DeiT-S at 384 pixels, batch 64."""
+    DeiT-S at 384 pixels, batch 64. `cases` ((shape, dtype, body), ...)
+    replaces phase 2's list (phase 13's head counts)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(shape, torch.bfloat16, "resident") for shape in RESIDENT]
-    cases += [(shape, torch.bfloat16, "streaming") for shape in STREAMING]
-    cases += [(shape, dtype, "general") for shape in GENERAL
-              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(shape, dtype, "general", 1) for shape in GENERAL_UNALIGNED
-              for dtype in (torch.bfloat16, torch.float32)]
+    if cases is None:
+        cases = [(shape, torch.bfloat16, "resident") for shape in RESIDENT]
+        cases += [(shape, torch.bfloat16, "streaming")
+                  for shape in STREAMING]
+        cases += [(shape, dtype, "general") for shape in GENERAL
+                  for dtype in (torch.bfloat16, torch.float32)]
+        cases += [(shape, dtype, "general", 1) for shape in GENERAL_UNALIGNED
+                  for dtype in (torch.bfloat16, torch.float32)]
     main_err = {}
     for shape, dtype, body, *offset in cases:
         q, k, v = make_qkv(*shape, dtype, gen, *offset)
@@ -2756,6 +2780,359 @@ def run_dist(A, card, root):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the tensor-parallel search step, the dry run, per-block remat
+# ---------------------------------------------------------------------------
+
+TP_BATCH = 32              # the global batch of 13 (a) and (b)
+TP_SEED = 13               # weights and images of 13 (a) and (b)
+TP_GEN = 22                # the generator of their PMIM masks
+TP_MESHES = (2, 4)         # model axes of 13 (a) and (b): heads 3 + 3,
+                           # and 2 + 2 + 1 + 1
+# the resident pair at a rank's share of DeiT-S's six heads
+TP_HEADS = [(TP_BATCH, 197, 3, 64), (TP_BATCH, 197, 2, 64),
+            (TP_BATCH, 197, 1, 64)]
+# the sharded step against one process's on the same card, bf16 (the
+# row-parallel products are summed from bf16 partials in another order,
+# through 12 blocks): the loss of both steps and the weights' gradient norm
+# relative to one process's; each watched leaf's update (every weight and
+# bias of qkv, proj, fc1 and fc2, the alphas) of the same sign but for at
+# most TOL_TP_FLIPS of its elements (Adam's first update is lr * sign(g),
+# so a gradient that bf16 rounding moves across 0 flips its element's
+# update), and the norm of the updates' difference relative to the update's
+# within TOL_TP_REL (a flipped element adds 2 lr: 2 sqrt(flips) a step);
+# a qkv bias's k third is left out of both (`_update_view`); the export's
+# tensors within TOL_TP_EXPORT of one process's export (the warm-up's
+# learning rate moves a weight by ~1e-6 a step, a flipped update by twice
+# that)
+TOL_TP_LOSS = 1e-3
+TOL_TP_GRAD_NORM = 1e-2
+TOL_TP_FLIPS = 0.02
+TOL_TP_REL = 0.4
+TOL_TP_EXPORT = 2e-5
+TP_WATCHED = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight",
+              "attn.proj.bias", "mlp.fc1.weight", "mlp.fc1.bias",
+              "mlp.fc2.weight", "mlp.fc2.bias")
+REMAT_BATCH = 256
+REMAT_MODELS = ("deit_small", "deit_base")
+REMAT_CALLS = 2            # timed steps a turn (after one untimed)
+
+
+def tp_sequence(mesh, save=None):
+    """13 (a) / (b) in one rank (`mesh` a (1, tp) mesh) or in one process
+    (mesh None): DeiT-S bf16 from TP_SEED, sharded on the mesh's model
+    axis; a search step on the global batch of TP_BATCH, block 0's MLP
+    alpha cell 0 at -8 and a compress pass, a post-prune step, then a
+    forced convergence and the export (gathered first on a mesh). `save`
+    (rank 0's directory) receives the gathered watched leaves (TP_WATCHED,
+    the alphas) after each step and the export. Returns the JSON-able
+    summary (`peak_mib`: the steps' peak over what the process held before
+    the model was built); without a mesh also the watched leaves, at the
+    start too, and the export."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.core.compress import compress
+    from ofb_tpu_torch.core.export import export_subnet
+    from ofb_tpu_torch.core.optim import named_leaves
+    from ofb_tpu_torch.core.steps import TrainState, make_search_step
+    from ofb_tpu_torch.models.registry import create_model
+    from ofb_tpu_torch.ops import attention as A
+    from ofb_tpu_torch.parallel.mesh import gather_named, shard_params, tp_of
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    bundle = create_model("deit_small_patch16_224_mim", device="cuda",
+                          patch_search=True)
+    params, alphas, arch = bundle.init(TP_SEED)
+    if mesh is not None:
+        shard_params(params, mesh)
+    scfg, tx = B.search_config(TP_BATCH)
+    state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
+                       opt_state=tx.init(named_leaves(params, alphas)))
+    step = make_search_step(bundle.space, bundle.cfg, scfg, tx,
+                            compute_dtype=torch.bfloat16, device="cuda")
+    images, labels = B.random_batch(bundle.cfg, TP_BATCH, "cuda", TP_SEED)
+    g = torch.Generator(device="cuda").manual_seed(TP_GEN)
+    layout = tp_of(params)
+    metrics, times, snaps = [], [], {}
+
+    def watched(tag):
+        live = {n: p.detach() for n, p in
+                named_leaves(state.params, state.alphas).items()
+                if n.startswith("alphas.") or n.endswith(TP_WATCHED)}
+        snaps[tag] = {n: t.to("cpu", copy=True) for n, t in
+                      gather_named(live, layout).items()}
+
+    def one_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, images, labels, g, 0.75)
+        metrics.append(_finite(m, "13 tensor-parallel step"))
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    if mesh is None:
+        watched("init")
+    A.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    watched("step1")
+    with torch.no_grad():
+        alphas.blocks[0].mlp[..., 0] = -8.0
+    report = compress(state.params, alphas, state.arch, state.opt_state,
+                      bundle.space, scfg.compress_thresh)[4]
+    if not report.execute_prune:
+        raise AssertionError("13: the forced compress event did not fire")
+    one_step()
+    watched("step2")
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    counts = by_body(A)
+    conv = B.force_convergence(state, bundle.space)[0]
+    if not conv.finish_search:
+        raise AssertionError(f"13: no convergence: {conv.events}")
+    dense, dcfg, _ = export_subnet(state.params, state.arch, bundle.space,
+                                   bundle.cfg)
+    export = {n: p.detach().cpu() for n, p in dense.named_parameters()}
+    if save is not None:
+        torch.save({"snaps": snaps, "export": export},
+                   os.path.join(save, "tp.pt"))
+    res = {"metrics": metrics, "step_ms": times, "peak_mib": peak,
+           "counts": counts, "events": report.events,
+           "block_dims": [list(b) for b in dcfg.block_overrides]}
+    if mesh is None:
+        res.update(snaps=snaps, export=export)
+    return res
+
+
+def tp_worker(rank, world, rdzv, out):
+    """13 (a) / (b), one of `world` ranks sharing the card over gloo on a
+    (1, world) mesh: `tp_sequence`. Prints `TP_STEP {json}`."""
+    _worker_setup()
+    import torch.distributed as dist
+    from ofb_tpu_torch.parallel import distributed as D
+    from ofb_tpu_torch.parallel.mesh import make_mesh
+    if D.init_distributed("gloo", init_method=f"file://{rdzv}") != (
+            rank, world):
+        raise AssertionError(f"13: not a world of {world}")
+    mesh = make_mesh((1, world))
+    res = tp_sequence(mesh, save=out if rank == 0 else None)
+    D.barrier_sync("13 done")
+    dist.destroy_process_group()
+    res.update(rank=rank, world=world)
+    print("TP_STEP " + json.dumps(res), flush=True)
+
+
+def _update_view(name, t):
+    """The elements of a watched leaf whose update 13 (a) / (b) compare: a
+    qkv bias without its k third, whose gradient is zero but for rounding
+    (a shift of every key by b_k moves a query's scores by the one number
+    q . b_k, which the softmax ignores), so its update is the sign of
+    noise."""
+    if not name.endswith("attn.qkv.bias"):
+        return t
+    d = t.shape[-1] // 3
+    import torch
+    return torch.cat([t[..., :d], t[..., 2 * d:]], -1)
+
+
+def _flip_share(got, want, init):
+    """The share of elements whose update has the other sign, and the
+    relative norm of the updates' difference."""
+    du, dw = got - init, want - init
+    flips = ((du.sign() != dw.sign()) & (dw != 0)).float().mean().item()
+    return flips, ((du - dw).norm() / dw.norm().clamp_min(1e-30)).item()
+
+
+def run_remat(A, card):
+    """13 (c): the search step with `remat` against the plain step, DeiT-S
+    and DeiT-B at REMAT_BATCH, from one seed: the state after one step
+    equal (ArchState bit-identical, every other tensor within TOL_GRAPH),
+    then ms a step in turns (plain, remat, remat, plain; REMAT_CALLS
+    timed steps a turn, host time) and the peak device memory of a step
+    over what was resident before it. Returns the launches."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+    for model in REMAT_MODELS:
+        runs = {}
+        for remat in (False, True):
+            bundle, state, step, images, labels = B.build_step(
+                model, REMAT_BATCH, seed=31, remat=remat)
+            runs[remat] = {"state": state, "step": step, "images": images,
+                           "labels": labels,
+                           "gen": torch.Generator(device="cuda")
+                           .manual_seed(32), "ms": [], "mib": []}
+
+        def call(r):
+            r["state"], m = r["step"](r["state"], r["images"], r["labels"],
+                                      r["gen"], 0.75)
+            return m["loss_total"]
+
+        A.reset_launch_counts()
+        for r in runs.values():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call(r)
+            torch.cuda.synchronize()
+            r["mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            r["peak"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        worst = _state_diff(f"13 (c) {model}", runs[True]["state"],
+                            runs[False]["state"])
+        for remat in (False, True, True, False):
+            r = runs[remat]
+            _, dt = _timed_calls(lambda: call(r), REMAT_CALLS)
+            r["ms"].append(dt * 1e3)
+        for k, n in kernel_counts(by_body(A)).items():
+            totals[k] += n
+        plain, rem = runs[False], runs[True]
+        log(f"remat (c) {model} search step, batch {REMAT_BATCH}, on {card}:"
+            f" remat = plain after one step (largest difference "
+            f"{worst[0]:.3e} at {worst[1]}, tol {TOL_GRAPH:g}); ms a step "
+            f"plain {[round(t, 2) for t in plain['ms']]}, remat "
+            f"{[round(t, 2) for t in rem['ms']]} (host time, {REMAT_CALLS} "
+            f"steps a turn); a step's peak over resident memory plain "
+            f"{plain['mib']:.1f} MiB, remat {rem['mib']:.1f} MiB (both "
+            f"states resident: peak {plain['peak']:.1f} / "
+            f"{rem['peak']:.1f} MiB)")
+        del runs
+        torch.cuda.empty_cache()
+    return totals
+
+
+def run_tp(A, card, root):
+    """Phase 13: (a) the tensor-parallel search step on a (1, 2) mesh and
+    (b) on a (1, 4) mesh, ranks sharing the card over gloo (correctness
+    runs, not speed figures: gloo stages card tensors through the host),
+    against one process's sequence on the card; the resident pair at a
+    rank's head counts against its twin; (c) remat against the plain step;
+    (d) `python -m ofb_tpu_torch.dryrun --devices 4 --tiny` on the card.
+    Returns the launches of (a) to (c)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.empty_cache()
+    me = os.path.abspath(__file__)
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+    t0 = time.perf_counter()
+    dirs, procs = {}, []
+    for tp in TP_MESHES:
+        dirs[tp] = tempfile.mkdtemp(prefix=f"ofb_tp{tp}_", dir=root)
+        procs += [_start([sys.executable, me, "--tp-step", str(r), str(tp),
+                          os.path.join(dirs[tp], "rdzv"), dirs[tp]],
+                         _dist_env(r, tp)) for r in range(tp)]
+    dry = _start([sys.executable, "-m", "ofb_tpu_torch.dryrun", "--devices",
+                  "4", "--tiny", "--device", "cuda"], _dist_env())
+    # meanwhile: the resident pair at a rank's share of the heads (not
+    # counted: a comparison)
+    check_kernels(A, [(s, torch.bfloat16, "resident") for s in TP_HEADS])
+    outs = _finish(procs + [dry], "13 (a), (b), (d)")
+    workers_s = time.perf_counter() - t0
+    ranks = {}
+    for out in outs[:-1]:
+        r = _tagged(out, "TP_STEP")
+        ranks.setdefault(r["world"], []).append(r)
+    done = [ln for ln in outs[-1].splitlines()
+            if ln.startswith("dryrun_multichip(4): tiny mesh=(2x2) ")
+            and ln.endswith(" OK")]
+    if len(done) != 1 or "compress digest: " not in outs[-1]:
+        raise AssertionError(f"13 (d): the dry run's output:\n"
+                             f"{outs[-1][-2000:]}")
+    log(f"tp (d) python -m ofb_tpu_torch.dryrun --devices 4 --tiny --device "
+        f"cuda: {done[0]}")
+
+    # the same sequence in one process on the card
+    A.reset_launch_counts()
+    one = tp_sequence(None)
+    A.reset_launch_counts()
+    want = one["snaps"]
+    init = want["init"]
+    for tp, rs in sorted(ranks.items()):
+        rs.sort(key=lambda r: r["rank"])
+        for r in rs:
+            if r["metrics"] != rs[0]["metrics"] \
+                    or r["events"] != rs[0]["events"]:
+                raise AssertionError(f"13 tp {tp}: rank {r['rank']} differs "
+                                     f"from rank 0")
+            if r["counts"] != only("resident", 24, 24):
+                raise AssertionError(f"13 tp {tp} rank {r['rank']}: launches "
+                                     f"{r['counts']}")
+            for k, n in kernel_counts(r["counts"]).items():
+                totals[k] += n
+        if rs[0]["events"] != one["events"] \
+                or rs[0]["block_dims"] != one["block_dims"]:
+            raise AssertionError(f"13 tp {tp}: compress events "
+                                 f"{rs[0]['events']} / {one['events']}, "
+                                 f"export widths {rs[0]['block_dims']} / "
+                                 f"{one['block_dims']}")
+
+        def rel_to_one(key):
+            return [abs(a[key] - b[key]) / abs(b[key])
+                    for a, b in zip(rs[0]["metrics"], one["metrics"])]
+
+        loss, gnorm = rel_to_one("loss_total"), rel_to_one("grad_norm")
+        saved = torch.load(os.path.join(dirs[tp], "tp.pt"))
+        if set(saved["snaps"]["step1"]) != set(want["step1"]):
+            raise AssertionError(f"13 tp {tp}: watched leaves differ")
+        flips, rels = (0.0, "none"), (0.0, "none")
+        for tag in ("step1", "step2"):
+            for n, w in want[tag].items():
+                f, r = _flip_share(
+                    *(_update_view(n, t) for t in (saved["snaps"][tag][n], w,
+                                                   init[n])))
+                flips = max(flips, (f, f"{tag} {n}"))
+                rels = max(rels, (r, f"{tag} {n}"))
+        ex, ex_at = 0.0, "none"
+        if set(saved["export"]) != set(one["export"]):
+            raise AssertionError(f"13 tp {tp}: the export's tensors differ")
+        for n, w in one["export"].items():
+            got = saved["export"][n]
+            if got.shape != w.shape:
+                raise AssertionError(f"13 tp {tp}: export {n} {got.shape} "
+                                     f"!= {w.shape}")
+            d = (got.float() - w.float()).abs().max().item()
+            if d >= ex:
+                ex, ex_at = d, n
+        if max(loss) > TOL_TP_LOSS or max(gnorm) > TOL_TP_GRAD_NORM \
+                or flips[0] > TOL_TP_FLIPS or rels[0] > TOL_TP_REL \
+                or ex > TOL_TP_EXPORT:
+            raise AssertionError(
+                f"13 tp {tp}: loss rel {loss} (tol {TOL_TP_LOSS:g}), grad "
+                f"norm rel {gnorm} (tol {TOL_TP_GRAD_NORM:g}), update signs "
+                f"flipped at {flips[0]:.4f} of {flips[1]} (tol "
+                f"{TOL_TP_FLIPS:g}), update difference rel {rels[0]:.3e} at "
+                f"{rels[1]} (tol {TOL_TP_REL:g}), export off by {ex:.3e} at "
+                f"{ex_at} (tol {TOL_TP_EXPORT:g})")
+        log(f"tp ({'a' if tp == 2 else 'b'}) mesh (1, {tp}) over gloo on "
+            f"{card} (a correctness run, not a speed figure), DeiT-S bf16, "
+            f"batch {TP_BATCH}, heads by rank "
+            f"{[len(a) for a in np.array_split(np.arange(6), tp)]}: search "
+            f"step, forced compress ({'; '.join(rs[0]['events'])}), "
+            f"post-prune step; rel to one process: loss {loss} (tol "
+            f"{TOL_TP_LOSS:g}), grad norm {gnorm} (tol "
+            f"{TOL_TP_GRAD_NORM:g}); watched leaves' updates (qkv, proj, "
+            f"fc1, fc2 weights and biases but a qkv bias's k third, alphas) "
+            f"of the other sign at most "
+            f"{flips[0]:.4f} ({flips[1]}; tol {TOL_TP_FLIPS:g}), update "
+            f"difference rel at most {rels[0]:.3e} ({rels[1]}; tol "
+            f"{TOL_TP_REL:g}); export (block dims {rs[0]['block_dims']}, "
+            f"one process's) within {ex:.3e} ({ex_at}; tol "
+            f"{TOL_TP_EXPORT:g}) of one process's export; peak "
+            f"memory over what was held before the model, by rank "
+            f"{[round(r['peak_mib'], 1) for r in rs]} MiB, one process "
+            f"{one['peak_mib']:.1f} MiB; ms a step by rank "
+            f"{[[round(t, 1) for t in r['step_ms']] for r in rs]}, one "
+            f"process {[round(t, 1) for t in one['step_ms']]}; launches a "
+            f"rank {rs[0]['counts']}")
+        del saved
+    log(f"tp (a), (b), (d) processes: {workers_s:.1f} s")
+    for k, n in run_remat(A, card).items():
+        totals[k] += n
+    A.reset_launch_counts()
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2807,6 +3184,7 @@ def main():
         vit, vit_fp32 = timed("10", run_vit_family, A, smi, root)
         swin = timed("11", run_swin, A, smi, root)
         dist = timed("12", run_dist, A, smi, root)
+        tp = timed("13", run_tp, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"seconds by phase: {json.dumps(seconds)}")
@@ -2826,7 +3204,7 @@ def main():
                       launches_cli=cli[name], launches_384=at384[name],
                       launches_planned=planned[name],
                       launches_vit=vit[name], launches_swin=swin[name],
-                      launches_dist=dist[name])
+                      launches_dist=dist[name], launches_tp=tp[name])
         # the streaming body's times are at 577 tokens; the general body's
         # in fp32 at 197 tokens (its 577-token times stand beside them)
         timed = stream_fields[name] if name.endswith("_streaming") \
@@ -2862,5 +3240,8 @@ if __name__ == "__main__":
         dist_clis_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--dist-pair"]:
         dist_pair_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--tp-step"]:
+        tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
     else:
         sys.exit(main())

@@ -55,9 +55,14 @@ MFU counts 6 x the model's forward MACs per image for a training step
 SXM dense bf16 peak of 989 TFLOP/s; for the supernet the MACs are the
 dense supernet's (the FLOPs model's total), for the subnet its own.
 
+`--remat` recomputes each block of the DeiT supernet in the backward
+(`ModelCfg.remat`, the JAX package's `bench.py --remat`). The line of a
+step timed without --planned also reports the timed steps' peak device
+memory (`torch.cuda.max_memory_allocated`).
+
 Usage: python -m ofb_tpu_torch.bench [--model deit_small] [--batch 256]
        [--steps 20] [--phase search|postsearch|finetune|eval|augment]
-       [--subnet DIR] [--input-size S] [--planned] [--profile N]
+       [--subnet DIR] [--input-size S] [--planned] [--remat] [--profile N]
 Prints one JSON line; the phases that converge the search also report the
 host time of the converging `compress` pass and of a pass that finds
 nothing to prune. Needs a CUDA device. With --profile N it then traces N
@@ -106,16 +111,20 @@ def search_config(batch: int):
     return scfg, tx
 
 
-def build_step(model: str, batch: int, *, device="cuda", seed: int = 0):
+def build_step(model: str, batch: int, *, device="cuda", seed: int = 0,
+               remat: bool = False):
     """(bundle, state, step, images, labels) for `model`'s search step at
     `batch` images (one microbatch), bf16 compute, random weights and
-    images from `seed`."""
+    images from `seed`; `remat` recomputes each block in the backward."""
+    import dataclasses
     from .core.optim import named_leaves
     from .core.steps import TrainState, make_search_step
     from .models.registry import create_model
 
     bundle = create_model(f"{model}_patch16_224_mim", device=device,
                           patch_search=True)
+    if remat:
+        bundle.cfg = dataclasses.replace(bundle.cfg, remat=True)
     params, alphas, arch = bundle.init(seed)
     scfg, tx = search_config(batch)
     state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
@@ -360,10 +369,12 @@ class PlannedCalls:
     after its warm-up), `eager()` through its own function; each returns
     the loss and keeps the step's output in `out`. `restart()` loads a
     fresh plan from the state's step counter, so a timing run never walks
-    off the plan's end."""
+    off the plan's end. `part` (rank, parts): this data rank's columns of
+    a plan of `batch` images a step."""
 
     def __init__(self, pstep, box, batch: int, rows: int, *, search: bool,
-                 staging: int = 256, images: int = 1024, seed: int = 0):
+                 staging: int = 256, images: int = 1024, seed: int = 0,
+                 part=(0, 1)):
         import numpy as np
         g = torch.Generator(device="cuda").manual_seed(seed + 3)
         self.cache = torch.randint(0, 256, (images, staging, staging, 3),
@@ -371,7 +382,9 @@ class PlannedCalls:
                                    dtype=torch.uint8)
         rng = np.random.default_rng(seed)
         self.labels = rng.integers(0, 1000, (images,))
-        self.batches = rng.integers(0, images, (rows, batch))
+        mb = batch // part[1]
+        self.batches = rng.integers(0, images, (rows, batch))[
+            :, part[0] * mb:(part[0] + 1) * mb]
         self.pstep, self.box, self.search = pstep, box, search
         self.gen = torch.Generator(device="cuda").manual_seed(seed + 4)
         self.restart()
@@ -668,7 +681,13 @@ def main():
                     help="trace this many more steps and print a breakdown")
     ap.add_argument("--no-dense", action="store_true",
                     help="Swin search: skip the dense companion step")
+    ap.add_argument("--remat", action="store_true",
+                    help="DeiT search / postsearch: recompute each block in "
+                         "the backward (memory for FLOPs)")
     args = ap.parse_args()
+    if args.remat and (args.model.startswith("swin")
+                       or args.phase not in ("search", "postsearch")):
+        ap.error("--remat is for the DeiT search and postsearch phases")
     if args.planned and args.phase not in ("search", "postsearch",
                                            "finetune"):
         ap.error("--planned is for the search, postsearch and finetune "
@@ -714,8 +733,9 @@ def main():
         extra["subnet"] = args.subnet
     else:
         subnet = None
-        bundle, state, step, images, labels = build_step(args.model,
-                                                         args.batch)
+        bundle, state, step, images, labels = build_step(
+            args.model, args.batch, remat=args.remat)
+        extra["remat"] = args.remat
         with torch.no_grad():
             gmacs, _ = model_flops(state.alphas, state.arch, bundle.space,
                                    bundle.cfg)
@@ -731,9 +751,9 @@ def main():
         report, ms, idle_ms = force_convergence(state, bundle.space)
         if not report.finish_search:
             raise RuntimeError(f"the search did not converge: {report.events}")
-        extra = {"compress_ms": round(ms, 3),
-                 "compress_idle_ms": round(idle_ms, 3),
-                 "compress_events": len(report.events)}
+        extra.update(compress_ms=round(ms, 3),
+                     compress_idle_ms=round(idle_ms, 3),
+                     compress_events=len(report.events))
     if args.phase == "postsearch":
         post = build_postsearch_step(bundle, args.batch)
 
@@ -785,7 +805,10 @@ def main():
                                  pstep.launches_per_replay.items() if n})
         call = calls.graph
     else:
+        torch.cuda.reset_peak_memory_stats()
         dt = time_calls(call, args.steps)
+        extra["peak_mem_gib"] = round(
+            torch.cuda.max_memory_allocated() / 2 ** 30, 3)
     img_s = args.batch / dt
     mfu = img_s * passes * float(gmacs) * 1e9 / H100_BF16_PEAK
     name = {"deit_small": "deit_s", "deit_base": "deit_b",

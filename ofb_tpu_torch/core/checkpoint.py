@@ -28,6 +28,9 @@ package never reads the port's format.
 The steps update parameters, moments and EMA in place, so `save_checkpoint`
 takes its snapshot (a copy to the host) before it returns, even with
 async_write: only serialisation and file I/O run on the writer thread.
+A tensor-parallel supernet's shards (and their EMA and Adam moments) are
+gathered into the full tensors first, so its checkpoint is the
+one-process format.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from ..models.search_space import ArchState
 from ..parallel.distributed import barrier_sync
+from ..parallel.mesh import gather_named, tp_of
 from ..utils.logging import is_main_process
 from .msgpack import read_tree
 from .optim import LrScaleState, set_count
@@ -150,16 +154,22 @@ def save_checkpoint(path: str, *, params, alphas=None, arch=None,
                     opt_state=None, ema_params=None,
                     meta: Optional[Dict[str, Any]] = None,
                     async_write: bool = False) -> None:
-    """Write a checkpoint directory (rank 0 only). The parts are copied to
-    the host before this returns; with async_write, serialisation and file
-    I/O then run on a background thread (writes to one directory run one
-    after the other)."""
+    """Write a checkpoint directory (rank 0 only; with a tensor-parallel
+    `params` every rank calls it, for the gather of the shards). The parts
+    are copied to the host before this returns; with async_write,
+    serialisation and file I/O then run on a background thread (writes to
+    one directory run one after the other)."""
+    layout = tp_of(params)
+    if not is_main_process() and layout is None:
+        return
+    objs = dict(zip(PARTS, (params, alphas, arch, opt_state, ema_params)))
+    parts = {name: _snapshot(gather_named(_live(name, obj), layout)
+                             if name in ("params", "opt_state", "ema")
+                             else _live(name, obj))
+             for name, obj in objs.items() if obj is not None}
     if not is_main_process():
         return
     os.makedirs(path, exist_ok=True)
-    objs = dict(zip(PARTS, (params, alphas, arch, opt_state, ema_params)))
-    parts = {name: _snapshot(_live(name, obj))
-             for name, obj in objs.items() if obj is not None}
     if not async_write:
         _write(path, parts, meta)
         return
@@ -301,22 +311,15 @@ def _restore_jax(name: str, obj, tree, path: str) -> None:
                              flatten_from_jax(tree).items()}, path)
 
 
-# fields of the JAX package's configs that change no result, only how XLA
-# spends memory: `remat` rematerialises each block in the backward
-IGNORED_CFG_FIELDS = ("remat",)
-
-
 def model_cfg_from_meta(cfg_dict: Dict[str, Any], cfg_cls):
     """Rebuild a frozen, tuple-field config dataclass from the JSON round
     trip of dataclasses.asdict: lists become tuples, nested ones too. A
-    JAX package's config is taken as it stands, its `remat` ignored."""
+    JAX package's config is taken as it stands, its `remat` with it."""
     def conv(v):
         if isinstance(v, list):
             return tuple(conv(x) for x in v)
         return v
-    known = {f.name for f in dataclasses.fields(cfg_cls)}
-    return cfg_cls(**{k: conv(v) for k, v in cfg_dict.items()
-                      if k in known or k not in IGNORED_CFG_FIELDS})
+    return cfg_cls(**{k: conv(v) for k, v in cfg_dict.items()})
 
 
 def swin_from_meta(meta: Dict[str, Any], device=None):

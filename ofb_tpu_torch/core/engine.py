@@ -28,7 +28,7 @@ import torch
 
 from ..config import SearchConfig
 from ..models.search_space import SearchSpace
-from ..parallel.distributed import all_sum
+from ..parallel.distributed import all_sum, data_group
 from ..utils.logging import master_print
 from ..utils.metrics import MetricLogger
 from .compress import compress, sync_w_p, update_w_p
@@ -327,8 +327,9 @@ def evaluate(eval_step: Callable, feed: Iterable, *args,
     """Top-1 / top-5 / loss over a feed. `args` are the model state pieces
     the eval step takes before (images, labels). The sums stay on the
     device (float64) and come back once at the end; under a process group
-    they are then summed over the ranks (each rank's feed its shard of the
-    val set), so every rank reports the full val set's statistics."""
+    they are then summed over the ranks of the data axis (each rank's feed
+    its shard of the val set; a model group's ranks score the same rows),
+    so every rank reports the full val set's statistics."""
     keys = ("loss_sum", "top1", "top5", "count")
     tot = None
     for imgs, lbls in feed:
@@ -339,7 +340,7 @@ def evaluate(eval_step: Callable, feed: Iterable, *args,
         row = torch.stack([m[k].detach().double() for k in keys])
         tot = row if tot is None else tot + row
     vals = dict(zip(keys, all_sum(tot.cpu().tolist() if tot is not None
-                                  else [0.0] * 4)))
+                                  else [0.0] * 4, group=data_group())))
     n = max(vals["count"], 1.0)
     stats = {"loss": vals["loss_sum"] / n, "acc1": 100.0 * vals["top1"] / n,
              "acc5": 100.0 * vals["top5"] / n}

@@ -24,6 +24,7 @@ import torch
 from ..models.mim_vit import MimViT, fuse_params
 from ..models.search_space import ArchState, SearchSpace
 from ..models.vit import ModelCfg, ViT
+from ..parallel.mesh import gather_params
 from .compress import fetch_host
 
 
@@ -38,8 +39,12 @@ def export_subnet(params: MimViT, arch: ArchState, space: SearchSpace,
     supernet's device.
 
     Returns (dense_params, dense_cfg, meta). meta records the keep sets so
-    a checkpoint can be re-expanded or audited.
+    a checkpoint can be re-expanded or audited. A tensor-parallel
+    supernet's shards are gathered first (`parallel.mesh.gather_params`, a
+    collective of the model group), so it exports what one process's
+    search exports.
     """
+    params = gather_params(params)
     masks = fetch_host([arch.fused, arch.embed.hard_mask]
                    + [m for b in arch.blocks
                       for m in (b.attn.hard_mask, b.mlp.hard_mask)])

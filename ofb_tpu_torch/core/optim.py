@@ -32,11 +32,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Collection, Dict, List, Optional, Tuple
 
 import torch
 
 from ..config import OptimFamilyConfig, ScheduleConfig
+from ..parallel.tensor_parallel import model_sum
 
 Schedule = Callable[[Any], torch.Tensor]
 
@@ -208,9 +209,28 @@ def set_count(adam: AdamWState, value: int) -> None:
         adam.count = int(value)
 
 
-def _clip(g: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    """optax's clip_by_global_norm over the list."""
-    gn = torch.sqrt(sum((x.float().square().sum() for x in g)))
+def global_norm(g: List[torch.Tensor],
+                sharded: Optional[List[bool]] = None) -> torch.Tensor:
+    """optax.global_norm of the logical arrays that `g` holds: where
+    `sharded` flags a tensor-parallel shard, its square sum is summed over
+    the model group, and each replicated leaf counts once."""
+    sharded = sharded or [False] * len(g)
+
+    def sq(xs):
+        return sum((x.float().square().sum() for x in xs),
+                   torch.zeros((), device=g[0].device))
+
+    total = sq([x for x, s in zip(g, sharded) if not s])
+    if any(sharded):
+        total = total + model_sum(sq([x for x, s in zip(g, sharded) if s]))
+    return torch.sqrt(total)
+
+
+def _clip(g: List[torch.Tensor], max_norm: float,
+          sharded: Optional[List[bool]] = None) -> List[torch.Tensor]:
+    """optax's clip_by_global_norm over the list (of logical arrays, with
+    `sharded` as in `global_norm`)."""
+    gn = global_norm(g, sharded)
     keep = gn < max_norm
     return [torch.where(keep, x, x / gn * max_norm) for x in g]
 
@@ -255,12 +275,14 @@ class SearchOptimizer:
         return self.families[family].schedule(count * self.accum_iter)
 
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
-               params: Dict[str, torch.Tensor]):
+               params: Dict[str, torch.Tensor],
+               sharded: Collection[str] = ()):
         """(updates, state). The moments and the count advance in place, and
         the count, the learning rates and the bias corrections are device
         tensors computed in fp32 (as optax does): the update reads no host
         number that changes from step to step, so a CUDA graph can replay
-        it."""
+        it. `sharded` names the leaves held as tensor-parallel shards, whose
+        square sums the clip sums over the model group."""
         dev = next(iter(params.values())).device
         if not isinstance(state.count, torch.Tensor):
             state.count = torch.tensor(int(state.count), dtype=torch.int64,
@@ -269,7 +291,8 @@ class SearchOptimizer:
         tf = t.to(torch.float32) + 1.0
         if self.clip_grad is not None and self.clip_global:
             grads = dict(zip(grads, _clip(list(grads.values()),
-                                          self.clip_grad)))
+                                          self.clip_grad,
+                                          [n in sharded for n in grads])))
         by_family: Dict[str, List[str]] = {f: [] for f in self.families}
         for n, lab in self.labels(params).items():
             by_family[lab].append(n)
@@ -282,7 +305,7 @@ class SearchOptimizer:
             b1, b2 = fam.cfg.betas
             g = [grads[n] for n in names]
             if self.clip_grad is not None and not self.clip_global:
-                g = _clip(g, self.clip_grad)
+                g = _clip(g, self.clip_grad, [n in sharded for n in names])
             mu = [state.mu[n] for n in names]
             nu = [state.nu[n] for n in names]
             torch._foreach_lerp_(mu, g, 1.0 - b1)
@@ -334,8 +357,8 @@ class _LrScaled:
         return LrScaleState(torch.ones((), dtype=torch.float32, device=dev),
                             self.tx.init(leaves))
 
-    def update(self, grads, state: LrScaleState, params):
-        updates, _ = self.tx.update(grads, state.inner, params)
+    def update(self, grads, state: LrScaleState, params, sharded=()):
+        updates, _ = self.tx.update(grads, state.inner, params, sharded)
         names = list(updates)
         scaled = torch._foreach_mul([updates[n] for n in names], state.scale)
         return dict(zip(names, scaled)), state

@@ -38,6 +38,16 @@ ranks; the decoder weight, the gradients and the metrics are the global
 batch's (`_accumulate`'s all-reduce). A world of N then takes the step one
 process takes on the concatenated batch.
 
+On a (data, model) mesh (`parallel.mesh.make_mesh`, the active one) the
+step runs tensor parallel on a supernet cut into model-axis shards by
+`parallel.mesh.shard_params`, the batch split over the data axis. Every collective above then runs over the
+data group only (the ranks of a model group hold the same rows), the
+forward's over the model group (`parallel/tensor_parallel.py`), and the
+gradient norm and the clip count each sharded leaf's square sum once,
+summed over the model group. It is the step one process takes on the
+whole supernet and the concatenated batch, as the JAX package's SPMD step
+on a (dp, tp) mesh is.
+
 `make_planned_search_step` / `make_planned_train_step` are the steps of the
 planned epoch: the epoch's index plan on the device, everything of an
 iteration (the schedules, the gather from the uint8 cache, the augment, the
@@ -63,10 +73,11 @@ from ..models.search_space import ArchState, SearchSpace
 from ..models.vit import ModelCfg, ViT, vit_forward
 from ..ops.augment import apply_train_augment, draw_train_augment
 from ..ops.mixup import apply_mixup, mixup_draws as draw_mixup
-from ..parallel.distributed import all_mean_, gather_rows
-from ..parallel.mesh import draw_rows, this_rank_rows
+from ..parallel.distributed import (all_mean_, data_group, gather_rows,
+                                    model_rank_world)
+from ..parallel.mesh import draw_rows, sharded_names, this_rank_rows
 from . import losses as L
-from .optim import named_leaves
+from .optim import global_norm, named_leaves
 
 METRIC_KEYS_SEARCH = ("loss_param", "loss_total", "loss_arch",
                       "loss_decoder", "searched_gflops", "grad_norm")
@@ -143,7 +154,8 @@ def _mixed(images, labels, generator, draws, mix, *, num_classes,
     partner is its mirror in the global microbatch (row B-1-i), so under
     data parallelism the ranks gather the global microbatch, mix it with
     the global batch's draws and keep their own rows."""
-    images, labels = gather_rows(images), gather_rows(labels)
+    images = gather_rows(images, group=data_group())
+    labels = gather_rows(labels, group=data_group())
     if draws is None:
         if generator is None:
             raise ValueError("Mixup needs a `generator` to draw from, or "
@@ -165,8 +177,8 @@ def _accumulate(leaves, A, micro):
     returns ({name: mean gradient}, {metric: mean}). A leaf no microbatch
     reached gets a zero gradient (Adam still decays its moments). Under a
     process group the gradients and metrics are then averaged over the
-    ranks, in one flat all-reduce: every rank holds the global batch's
-    mean, as JAX's replicated step does."""
+    ranks of the data axis, in one flat all-reduce: every rank holds the
+    global batch's mean, as JAX's replicated step does."""
     for p in leaves.values():
         p.grad = None
     sums: Dict[str, torch.Tensor] = {}
@@ -179,7 +191,8 @@ def _accumulate(leaves, A, micro):
         [p.grad if p.grad is not None else torch.zeros_like(p)
          for p in leaves.values()], float(A))))
     metrics = {k: v / A for k, v in sums.items()}
-    all_mean_(list(grads.values()) + list(metrics.values()))
+    all_mean_(list(grads.values()) + list(metrics.values()),
+              group=data_group())
     return grads, metrics
 
 
@@ -206,7 +219,9 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
                      hflip: bool = True, fused_model: bool = False,
                      gate_fold: bool = True, device="cuda"):
     """Build the supernet's step on `device` (default "cuda"; raises
-    without a card unless device="cpu" is asked for).
+    without a card unless device="cpu" is asked for). On the active mesh
+    (`parallel.mesh.make_mesh`) a supernet cut by `shard_params` steps
+    tensor parallel; each rank hands in its data-axis rows.
 
     Returns step(state, images (A, mb, H, W, C), labels (A, mb), generator,
     keep_ratio, token_masks=None, mixup_draws=None, augment_draws=None) ->
@@ -277,7 +292,7 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
             # (the ranks' means averaged); its gradient flows into the
             # decoder loss only
             pair = torch.stack([base, dec]).detach()
-            all_mean_([pair])
+            all_mean_([pair], group=data_group())
             w_dec = torch.where(pair[1] > 0,
                                 pair[0] / pair[1].clamp_min(1e-12), 0.0)
             total = total + arch_loss + w_dec * dec
@@ -294,6 +309,7 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
             if augment is not None else images.to(dev)
         labels = labels.to(dev)
         leaves = named_leaves(state.params, state.alphas)
+        sharded = set(sharded_names(state.params, leaves))
 
         def micro(a):
             return loss_fn(
@@ -303,13 +319,13 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
                 mixup_draws[a] if mixup_draws is not None else None)
 
         grads, metrics = _accumulate(leaves, A, micro)
-        wnorms = torch._foreach_norm(
-            [g for n, g in grads.items() if not n.startswith("alphas.")])
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(wnorms))
+        weights = [n for n in grads if not n.startswith("alphas.")]
+        metrics["grad_norm"] = global_norm(
+            [grads[n] for n in weights], [n in sharded for n in weights])
 
         with torch.no_grad():
             updates, state.opt_state = tx.update(grads, state.opt_state,
-                                                 leaves)
+                                                 leaves, sharded)
             for n, m in static_mask.items():
                 if m != 1.0:
                     updates[n] = updates[n] * m
@@ -496,6 +512,20 @@ class PlannedStep:
         self.captures += 1
 
 
+def _refuse_gloo_capture(device) -> None:
+    """Raise for a tensor-parallel planned step on the card under gloo (a
+    model axis above one on the active mesh): its forward's collectives
+    run in every replay, and gloo's stage card tensors through the host,
+    which a CUDA graph cannot capture."""
+    import torch.distributed as dist
+    if resolve_device(device).type != "cuda":
+        return
+    if model_rank_world()[1] > 1 and dist.get_backend() == "gloo":
+        raise ValueError("a tensor-parallel planned step on the card needs "
+                         "NCCL: a CUDA graph cannot capture gloo's "
+                         "collectives (use make_search_step, or NCCL)")
+
+
 def _gather(cache, idx_plan, labels_plan, it, A: int):
     """Row `it` of the plan: the uint8 cache rows and labels, as A
     microbatches."""
@@ -532,7 +562,11 @@ def make_planned_search_step(space: SearchSpace, mcfg: ModelCfg,
     the fused augment and the inner step (`make_search_step`, drawing from
     `generator` in the same order) and packs the metrics into one fp32
     vector in the keys' order. On the card the step is a `PlannedStep`:
-    replayed as a CUDA graph."""
+    replayed as a CUDA graph. On the card a tensor-parallel step (the
+    active mesh's model axis above one) is captured under NCCL only (a
+    CUDA graph cannot hold gloo's host-staged collectives), and refused
+    under gloo."""
+    _refuse_gloo_capture(device)
     inner = make_search_step(
         space, mcfg, scfg, tx, phase=phase, param_mask=param_mask,
         alpha_mask=alpha_mask, teacher_apply=teacher_apply,

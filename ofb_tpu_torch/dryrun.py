@@ -1,0 +1,299 @@
+"""Multi-device dry run of the tensor-parallel search step: the counterpart of
+the JAX package's `__graft_entry__.dryrun_multichip`.
+
+    python -m ofb_tpu_torch.dryrun --devices N [--tiny] [--device cpu|cuda]
+    torchrun --nproc_per_node N -m ofb_tpu_torch.dryrun [--tiny]
+        [--mesh DP TP] [--batch B] [--steps K] [--planned]
+
+Runs the flagship DeiT-S supernet in bf16 (the 32-wide two-block model in
+fp32 with --tiny, the JAX package's OFB_DRYRUN_TINY=1) over a (data,
+model) mesh of N ranks, with the JAX function's mesh choice: a model axis
+of 2 when N is even and at least 4, else 1. One search step on a global
+batch of one image per data rank, then a forced compress event (block 0's
+MLP alpha cell 0 pushed to -8, the consensus prune decision), the digest
+line, then a step after the prune. `--mesh` replaces the mesh choice,
+`--batch` the global batch and `--steps K` times K more steps after those
+(host time, synchronised); each rank then prints its ms a step and its
+peak device memory. With `--planned` (DeiT-S on the card) the K steps are
+the planned step's instead (`bench.PlannedCalls`: a device cache of uint8
+staging images, the fused augment, this data rank's columns of one plan),
+eager and replayed as a CUDA graph in turns (`bench.time_planned`), which
+on a model axis needs NCCL.
+
+Every rank runs on the card unless --device cpu asks for the CPU. Under a
+launcher (torchrun's environment, or the JAX package's
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) it runs in place, one
+process a rank, over NCCL (gloo with --device cpu). Without one it starts
+N processes itself that meet over gloo through a file rendezvous, as the
+JAX function re-executes itself onto an N-device CPU platform: they share
+the one card, or run on the CPU with --device cpu. Their output is passed
+on in rank order and the exit status is non-zero when any rank failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+TIMEOUT = 1200          # seconds a spawned rank may take
+
+
+def flagship(tiny: bool, device):
+    """The DeiT-S supernet's bundle, or the 32-wide model of the JAX
+    package's tiny dry run."""
+    from .models.registry import ModelBundle, create_model
+    from .models.search_space import SearchSpace
+    from .models.vit import ModelCfg
+    if not tiny:
+        return create_model("deit_small_patch16_224_mim", device=device,
+                            patch_search=True)
+    cfg = ModelCfg(img_size=32, patch_size=8, num_classes=16, embed_dim=32,
+                   depth=2, num_heads=2, mlp_ratio=2.0)
+    space = SearchSpace.build(cfg.embed_dim, cfg.depth, cfg.num_heads,
+                              cfg.hidden, cfg.num_patches, patch_search=True)
+    return ModelBundle(name="tiny", cfg=cfg, space=space,
+                       device=torch.device(device), kind="mim")
+
+
+def mesh_shape(n: int):
+    """(data, model): the JAX dry run's choice."""
+    tp = 2 if n % 2 == 0 and n >= 4 else 1
+    return n // tp, tp
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(tiny: bool, device, mesh_dims=None, batch: int = 0,
+        steps: int = 0, planned: bool = False) -> None:
+    """The dry run in this rank of an initialised process group, on a mesh
+    of `mesh_dims` (the JAX choice by default), a global batch of `batch`
+    images (one a data rank by default), then `steps` timed steps (of the
+    planned step with `planned`)."""
+    from .config import SearchConfig
+    from .core.compress import compress
+    from .core.optim import build_search_optimizer, named_leaves
+    from .core.steps import TrainState, make_search_step
+    from .device import resolve_device
+    from .parallel.distributed import data_rank_world, rank_world
+    from .parallel.mesh import local_rows, make_mesh, shard_params
+
+    rank, n = rank_world()
+    dev = resolve_device(device)
+    dp, tp = mesh_dims or mesh_shape(n)
+    batch = batch or dp
+    mesh = make_mesh((dp, tp))
+    bundle = flagship(tiny, dev)
+    compute = torch.float32 if tiny else torch.bfloat16
+    params, alphas, arch = bundle.init(0)
+    scfg = SearchConfig(accum_iter=1,
+                        target_flops=0.0002 if tiny else 2.3).resolve(1)
+    tx, _ = build_search_optimizer(
+        scfg.optim_param, scfg.optim_arch, scfg.optim_decoder, scfg.schedule,
+        total_steps=100, steps_per_epoch=10)
+    shard_params(params, mesh, bundle.cfg)
+    state = TrainState(step=0, params=params, alphas=alphas, arch=arch,
+                       opt_state=tx.init(named_leaves(params, alphas)))
+    step = make_search_step(bundle.space, bundle.cfg, scfg, tx,
+                            phase="search", compute_dtype=compute,
+                            device=dev)
+
+    # the global batch (one image a data rank by default); this rank takes
+    # its rows
+    sz, ncls = bundle.cfg.img_size, bundle.cfg.num_classes
+    drank, _ = data_rank_world()
+    imgs = torch.from_numpy(np.random.RandomState(0).rand(
+        1, batch, sz, sz, 3).astype(np.float32))
+    lbls = torch.from_numpy(np.random.RandomState(1).randint(0, ncls,
+                                                             (1, batch)))
+    x, y = (local_rows(t, drank, dp, dim=1).to(dev) for t in (imgs, lbls))
+    say = print if rank == 0 else (lambda *a, **k: None)
+    dtype = str(compute).replace("torch.", "")
+    times = []
+
+    def timed_step(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = step(state, x, y, g, 0.8)
+        total = float(out[1]["loss_total"])
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(total):
+            raise AssertionError(f"rank {rank}: non-finite loss {total}")
+        return total
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    total = timed_step(1)
+    say(f"{bundle.name}: mesh=({dp}x{tp}) {dtype} step0 "
+        f"loss_total={total:.4f}", flush=True)
+
+    # the forced compress event: one MLP cell far below the kill
+    # threshold; every rank takes rank 0's decisions (compress broadcasts)
+    with torch.no_grad():
+        alphas.blocks[0].mlp[..., 0] = -8.0
+    _, _, arch, _, report = compress(state.params, alphas, state.arch,
+                                     state.opt_state, bundle.space,
+                                     scfg.compress_thresh)
+    if not report.execute_prune:
+        raise AssertionError("forced compress event did not fire")
+    switch = np.concatenate([b.mlp.switch.detach().cpu().numpy().astype(
+        np.uint8).reshape(-1) for b in arch.blocks]).tobytes()
+    digest = hashlib.sha256(switch).hexdigest()[:12]
+    say(f"compress digest: {'; '.join(report.events)} "
+        f"| mlp-switch sha256[:12]={digest}", flush=True)
+
+    total = timed_step(2)
+    more = ""
+    if steps and planned:
+        t = _time_planned(bundle, scfg, tx, state, dev, batch, steps)
+        more = (f", planned step over {steps} steps a turn: eager "
+                f"{t['eager']}, CUDA graph {t['graph']}")
+    elif steps:
+        _sync(dev)
+        t0 = time.perf_counter()
+        for k in range(steps):
+            step(state, x, y, torch.Generator(device=dev).manual_seed(3 + k),
+                 0.8)
+        _sync(dev)
+        more = (f", {(time.perf_counter() - t0) * 1e3 / steps:.3f} over "
+                f"{steps} more steps")
+    peak = f"{torch.cuda.max_memory_allocated(dev) / 2 ** 20:.1f} MiB" \
+        if dev.type == "cuda" else "not measured (CPU)"
+    print(f"rank {rank}: mesh=({dp}x{tp}) batch {batch} ms a step "
+          f"{[round(t, 2) for t in times]} (host time, the first with "
+          f"warm-up){more}, peak device memory {peak}", flush=True)
+    say(f"dryrun_multichip({n}): {bundle.name} mesh=({dp}x{tp}) "
+        f"post-prune loss_total={total:.4f} OK", flush=True)
+
+
+def _time_planned(bundle, scfg, tx, state, dev, batch: int, steps: int):
+    """{"eager": [ms, ms], "graph": [ms, ms]} of the planned search step on
+    the mesh, `steps` a turn, in turns (`bench.time_planned`)."""
+    from .bench import PlannedCalls, time_planned
+    from .core.steps import make_planned_search_step
+    from .parallel.distributed import data_rank_world
+    rows = 3 * steps + 8
+    pstep, _ = make_planned_search_step(
+        bundle.space, bundle.cfg, scfg, tx, phase="search",
+        steps_per_epoch=rows, compute_dtype=torch.bfloat16, device=dev)
+    calls = PlannedCalls(pstep, {"state": state}, batch, rows, search=True,
+                         part=data_rank_world())
+    times = time_planned(calls, steps)
+    if pstep.captures != 1:
+        raise AssertionError(f"{pstep.captures} CUDA graph captures")
+    return {k: [round(t * 1e3, 3) for t in v] for k, v in times.items()}
+
+
+def _spawn(n: int, tiny: bool, device: str, extra: List[str]) -> int:
+    """N ranks of this module over gloo through a file rendezvous; their
+    stdout in rank order, their stderr as it comes; the worst exit code."""
+    me = [sys.executable, "-m", "ofb_tpu_torch.dryrun"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory(prefix="ofb_dryrun_") as tmp:
+        rdzv = os.path.join(tmp, "rdzv")
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS",
+            "NUM_PROCESSES", "PROCESS_ID", "TORCHELASTIC_RUN_ID")}
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        env.setdefault("OMP_NUM_THREADS", "1")
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [env.get("PYTHONPATH")] if p])
+        procs = []
+        for r in range(n):
+            renv = dict(env, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK="0")
+            cmd = me + ["--devices", str(n), "--device", device, "--rdzv",
+                        rdzv] + (["--tiny"] if tiny else []) + extra
+            procs.append(subprocess.Popen(cmd, env=renv, cwd=root,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True,
+                                          start_new_session=True))
+        code, deadline = 0, time.time() + TIMEOUT
+        try:
+            for p in procs:
+                out, err = p.communicate(
+                    timeout=max(deadline - time.time(), 1.0))
+                sys.stdout.write(out)
+                sys.stderr.write(err)
+                code = code or p.returncode
+        except subprocess.TimeoutExpired:
+            print(f"dryrun: a rank outlasted {TIMEOUT} s", file=sys.stderr)
+            code = 124
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        sys.stdout.flush()
+        return code
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    from .parallel.distributed import _launch_env, init_distributed
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks; under a launcher its world (the default)")
+    ap.add_argument("--tiny", action="store_true",
+                    help="the 32-wide fp32 model instead of DeiT-S bf16")
+    ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
+                    help="cuda (the default: NCCL under a launcher, the "
+                         "one card shared over gloo by spawned ranks) or "
+                         "cpu (gloo)")
+    ap.add_argument("--mesh", type=int, nargs=2, default=None,
+                    metavar=("DP", "TP"), help="the (data, model) mesh "
+                    "(default: the JAX dry run's choice)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="global batch (default: one image a data rank)")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="steps timed after the dry run's two")
+    ap.add_argument("--planned", action="store_true",
+                    help="time the planned step (DeiT-S on the card)")
+    ap.add_argument("--rdzv", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.planned and (args.tiny or args.device == "cpu"
+                         or not args.steps):
+        ap.error("--planned times DeiT-S steps on the card: with --steps, "
+                 "without --tiny and --device cpu")
+    launch = _launch_env()
+    if launch is None:
+        if args.devices < 1:
+            ap.error("--devices N is needed without a launcher")
+        extra = (["--mesh", *map(str, args.mesh)] if args.mesh else []) + [
+            f"--batch={args.batch}", f"--steps={args.steps}"] + (
+            ["--planned"] if args.planned else [])
+        if args.device == "cuda":
+            from .device import resolve_device
+            resolve_device("cuda")      # raises without a card
+        return _spawn(args.devices, args.tiny, args.device, extra)
+
+    import torch.distributed as dist
+    device = args.device
+    backend = "gloo" if args.rdzv or device == "cpu" else "nccl"
+    rank, world = init_distributed(
+        backend, device=device,
+        init_method=f"file://{args.rdzv}" if args.rdzv else None)
+    if args.devices and args.devices != world:
+        ap.error(f"--devices {args.devices} in a world of {world}")
+    if args.mesh and args.mesh[0] * args.mesh[1] != world:
+        ap.error(f"--mesh {args.mesh} in a world of {world}")
+    try:
+        run(args.tiny, device, args.mesh, args.batch, args.steps,
+            args.planned)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

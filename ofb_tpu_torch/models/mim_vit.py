@@ -18,12 +18,22 @@ that dispatches it, does not grow with depth.
 
 `mim_forward` takes an optional `token_mask` so a caller (the tests) can
 hand in the PMIM mask instead of drawing it.
+
+A supernet cut by `parallel.mesh.shard_params` holds, on each rank of the
+model axis, the qkv rows and proj columns of its heads and the fc1 rows
+and fc2 columns of its MLP hidden units (`params.tp_layout`). The forward
+then computes the full gates on every rank from the replicated alphas and
+scores, passes them through `copy_to_model` and takes this rank's slice;
+the tokens enter qkv and fc1 through `copy_to_model`, and the partial
+proj and fc2 products are summed by `reduce_from_model` before the
+replicated bias is added once (`parallel/tensor_parallel.py`).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -32,11 +42,13 @@ from torch import nn
 
 from ..ops import gates as G
 from ..ops import pmim
-from ..parallel.mesh import draw_rows
+from ..parallel.distributed import model_rank_world
+from ..parallel.mesh import TPLayout, draw_rows, tp_of
+from ..parallel.tensor_parallel import copy_to_model, reduce_from_model
 from .search_space import (ArchState, SearchSpace, SpaceTensors,
                            space_tensors)
 from .vit import (ModelCfg, ViT, _attend, dropout, drop_path, linear,
-                  patch_embed, trunc_normal_)
+                  patch_embed, remat_block, trunc_normal_)
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +92,7 @@ class MimViT(ViT):
     def __init__(self, cfg: ModelCfg, space: SearchSpace, mae: bool = True,
                  generator=None, device=None):
         super().__init__(cfg, generator, device)
+        self.cfg = cfg
         D, H, hd, hid = cfg.embed_dim, cfg.num_heads, cfg.hd, cfg.hidden
         self.patch_embed.score = _score((D,), space.embed.searchable,
                                         generator, device)
@@ -211,15 +224,33 @@ def block_gates(params: MimViT, alphas: Alphas, arch: ArchState,
     return attn, mlp
 
 
+def _row_parallel_out(p: nn.Linear, y: torch.Tensor, he: torch.Tensor):
+    """`_masked_out` of a row-parallel weight (this rank's input columns):
+    the partial product, summed over the model group in fp32, then the
+    replicated bias added once. The live-embed mask folds into the rows,
+    which are not sharded."""
+    he32 = he.float()
+    part = F.linear(y, p.weight.to(y.dtype) * he.to(y.dtype)[:, None])
+    full = reduce_from_model(part.float())
+    return (full + p.bias.float() * he32).to(y.dtype)
+
+
 def gated_attention(p, x, gate, arch_blk, hard_embed, cfg: ModelCfg, *,
-                    train=False, generator=None, gate_fold: bool = True):
+                    train=False, generator=None, gate_fold: bool = True,
+                    tp: Optional[TPLayout] = None):
     """Gated attention: the block's (H, hd) bi-mask gate (None once fused)
     is folded into the qkv weights (or, with gate_fold off, multiplied
     onto q, k and v), q/k/v go to the fused kernels, the output writes only
-    live embed channels."""
+    live embed channels. With a tensor-parallel layout `tp` the weights are
+    this rank's heads' and `gate` its heads' slice of the gate."""
     a = arch_blk.attn
     B, N, _ = x.shape
     H, hd = a.hard_mask.shape
+    heads = None
+    if tp is not None:
+        h0, h1 = tp.head_range()
+        heads, H = (h0, H), h1 - h0
+        x = copy_to_model(x)
     w = p.qkv.weight.to(x.dtype)
     b = p.qkv.bias.to(x.dtype) if p.qkv.bias is not None else None
     if gate is not None and gate_fold:
@@ -231,16 +262,24 @@ def gated_attention(p, x, gate, arch_blk, hard_embed, cfg: ModelCfg, *,
         qkv = qkv * gate.to(qkv.dtype)
     y = _attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], a.scale,
                 train=train, attn_drop=cfg.attn_drop_rate,
-                generator=generator)
-    y = _masked_out(p.proj, y.reshape(B, N, H * hd), hard_embed)
+                generator=generator, heads=heads)
+    out = _row_parallel_out if tp is not None else _masked_out
+    y = out(p.proj, y.reshape(B, N, H * hd), hard_embed)
     return dropout(y, cfg.drop_rate, train, generator)
 
 
 def gated_mlp(p, x, gate, hard_embed, cfg: ModelCfg, *, train=False,
-              generator=None, gate_fold: bool = True):
+              generator=None, gate_fold: bool = True,
+              tp: Optional[TPLayout] = None):
     """Gated MLP: the block's hidden-width gate (None once fused) folded
     into fc1's output rows, or multiplied onto fc1's output with gate_fold
-    off."""
+    off. With a tensor-parallel layout `tp`, fc1's rows and fc2's columns
+    are this rank's hidden units and `gate` their slice."""
+    part = None
+    if tp is not None:
+        m0, _ = tp.hidden_range()
+        part = (2, m0, sum(tp.hidden))
+        x = copy_to_model(x)
     w = p.fc1.weight.to(x.dtype)
     b = p.fc1.bias.to(x.dtype)
     if gate is not None and gate_fold:
@@ -251,8 +290,9 @@ def gated_mlp(p, x, gate, hard_embed, cfg: ModelCfg, *, train=False,
     if gate is not None and not gate_fold:
         h = h * gate.to(x.dtype)
     h = F.gelu(h, approximate="none")
-    h = dropout(h, cfg.drop_rate, train, generator)
-    h = _masked_out(p.fc2, h, hard_embed)
+    h = dropout(h, cfg.drop_rate, train, generator, part=part)
+    h = (_row_parallel_out if tp is not None else _masked_out)(
+        p.fc2, h, hard_embed)
     return dropout(h, cfg.drop_rate, train, generator)
 
 
@@ -343,23 +383,43 @@ def mim_forward(params: MimViT, alphas: Alphas, arch: ArchState,
     tok = dropout(tok, cfg.drop_rate, train, generator)
 
     hard_e = arch.embed.hard_mask
+    tp = tp_of(params)
+    if tp is not None and model_rank_world() != (tp.rank, tp.size):
+        raise RuntimeError(f"a supernet sharded for model rank {tp.rank} of "
+                           f"{tp.size} on a mesh whose model axis is "
+                           f"{model_rank_world()}: make the mesh it was "
+                           "sharded on the active one")
     attn_gates = mlp_gates = [None] * cfg.depth
     if not fused:
         attn_gates, mlp_gates = block_gates(params, alphas, arch, banks)
-    for i, (bp, dp) in enumerate(zip(params.blocks, cfg.drop_path_schedule())):
+        if tp is not None:
+            # every rank computes the whole gates; the gradients of this
+            # rank's slice are summed over the model group upstream of it
+            (h0, h1), (m0, m1) = tp.head_range(), tp.hidden_range()
+            attn_gates = copy_to_model(attn_gates)[:, h0:h1]
+            mlp_gates = copy_to_model(mlp_gates)[:, m0:m1]
+
+    def block(tok, generator, i, bp, dp):
         h = G.masked_layer_norm(tok, eg.support, bp.norm1.weight,
                                 bp.norm1.bias, eps=cfg.ln_eps,
                                 passthrough="identity")
         h = gated_attention(bp.attn, h, attn_gates[i], arch.blocks[i], hard_e,
                             cfg, train=train, generator=generator,
-                            gate_fold=gate_fold)
+                            gate_fold=gate_fold, tp=tp)
         tok = tok + drop_path(h, dp, train, generator)
         h = G.masked_layer_norm(tok, eg.support, bp.norm2.weight,
                                 bp.norm2.bias, eps=cfg.ln_eps,
                                 passthrough="identity")
         h = gated_mlp(bp.mlp, h, mlp_gates[i], hard_e, cfg, train=train,
-                      generator=generator, gate_fold=gate_fold)
-        tok = tok + drop_path(h, dp, train, generator)
+                      generator=generator, gate_fold=gate_fold, tp=tp)
+        return tok + drop_path(h, dp, train, generator)
+
+    for i, (bp, dp) in enumerate(zip(params.blocks, cfg.drop_path_schedule())):
+        if cfg.remat:
+            tok = remat_block(functools.partial(block, i=i, bp=bp, dp=dp),
+                              generator, tok)
+        else:
+            tok = block(tok, generator, i, bp, dp)
 
     latent = G.masked_layer_norm(tok, eg.support, params.norm.weight,
                                  params.norm.bias, eps=cfg.ln_eps,
@@ -396,7 +456,12 @@ def fuse_params(params: MimViT, arch: ArchState, space: SearchSpace,
     (broadcast to (H, hd), repeated for q, k and v); fc1 rows and bias
     times the MLP score. Needs every module finished (the scores are then
     the linear gates, zero on dead dims). Returns a new model and a new
-    arch state with `fused` set; the ones handed in keep their values."""
+    arch state with `fused` set; the ones handed in keep their values.
+    Raises on a tensor-parallel supernet's shards: gather them first
+    (`parallel.mesh.gather_params`)."""
+    if tp_of(params) is not None:
+        raise ValueError("fuse_params takes a whole supernet: gather the "
+                         "shards first (parallel.mesh.gather_params)")
     p = copy.deepcopy(params)
     with torch.no_grad():
         es = params.patch_embed.score

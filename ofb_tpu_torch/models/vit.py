@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_mha
 from ..ops.gates import layer_norm
@@ -31,7 +32,9 @@ class ModelCfg:
     for exported subnets; `block_overrides` gives per-block
     (num_heads, head_dim, mlp_hidden) when blocks were pruned apart.
     `representation_size` adds the in21k models' pre-logits layer (a
-    linear and tanh before the head; none in a distilled model)."""
+    linear and tanh before the head; none in a distilled model). `remat`
+    keeps no block's activations for the backward and recomputes them
+    there (`remat_block`): memory for FLOPs, the same result."""
 
     img_size: int = 224
     patch_size: int = 16
@@ -51,6 +54,7 @@ class ModelCfg:
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
     ln_eps: float = 1e-6
+    remat: bool = False      # recompute each block in the backward
     block_overrides: Optional[Tuple[Tuple[int, int, int], ...]] = None
 
     def block_dims(self, i: int) -> Tuple[int, int, int]:
@@ -199,17 +203,76 @@ def patch_embed(weight, bias, x: torch.Tensor) -> torch.Tensor:
     return y.flatten(2).transpose(1, 2)
 
 
-def dropout(x, rate: float, train: bool, generator=None):
+class DrawTape:
+    """The random draws of one rematerialised block (`remat_block`): the
+    first run draws from `generator` and keeps what it drew, the recompute
+    in the backward takes the same tensors again in the same order. A
+    recompute that drew anew would draw from a generator that has moved
+    on, and get other masks; `torch.utils.checkpoint` restores only
+    torch's global generators, which the port never draws from."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.draws = []
+        self.at = None
+
+    def rand(self, shape, device) -> torch.Tensor:
+        if self.at is None:
+            t = torch.rand(shape, generator=self.generator, device=device)
+            self.draws.append(t)
+            return t
+        self.at += 1
+        return self.draws[self.at - 1]
+
+    def replay(self):
+        self.at = 0
+
+
+def _rand(shape, generator, device) -> torch.Tensor:
+    if isinstance(generator, DrawTape):
+        return generator.rand(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def remat_block(fn, generator, *tensors):
+    """fn(*tensors, generator) without its activations kept for the
+    backward: `torch.utils.checkpoint` runs it again there, its draws
+    replayed from a `DrawTape`, so a block with drop-path or dropout is
+    recomputed exactly (the JAX package's `jax.checkpoint` of a block).
+    Plain `fn` when no gradient is being recorded."""
+    if not torch.is_grad_enabled():
+        return fn(*tensors, generator)
+    tape = DrawTape(generator) if generator is not None else None
+    runs = []
+
+    def run(*args):
+        if runs and tape is not None:
+            tape.replay()
+        runs.append(1)
+        return fn(*args, tape)
+
+    return checkpoint(run, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def dropout(x, rate: float, train: bool, generator=None, part=None):
     """Inverted dropout; draws from `generator`. Without a generator there
     is no draw and x passes unchanged, as the JAX package's `dropout` does
     without an rng: torch's global generator is never used. Under data
     parallelism the draw is the global batch's (`parallel.mesh.draw_rows`,
-    dim 0 the batch)."""
+    dim 0 the batch). `part` (dim, start, full) says that x holds
+    [start, start + x.shape[dim]) of a tensor `full` wide along dim (a
+    tensor-parallel shard): the whole tensor's mask is drawn and x takes
+    its part, so a shard drops what one process drops."""
     if not train or rate <= 0.0 or generator is None:
         return x
-    keep = draw_rows(lambda n: torch.rand(
-        (n,) + tuple(x.shape[1:]), generator=generator, device=x.device),
-        x.shape[0]) < 1.0 - rate
+    shape = list(x.shape[1:])
+    if part is not None:
+        shape[part[0] - 1] = part[2]
+    keep = draw_rows(lambda n: _rand(
+        (n,) + tuple(shape), generator, x.device), x.shape[0]) < 1.0 - rate
+    if part is not None:
+        keep = keep.narrow(part[0], part[1], x.shape[part[0]])
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -219,21 +282,23 @@ def drop_path(x, rate: float, train: bool, generator=None):
     if not train or rate <= 0.0 or generator is None:
         return x
     tail = (1,) * (x.dim() - 1)
-    keep = draw_rows(lambda n: torch.rand(
-        (n,) + tail, generator=generator, device=x.device),
-        x.shape[0]) < 1.0 - rate
+    keep = draw_rows(lambda n: _rand((n,) + tail, generator, x.device),
+                     x.shape[0]) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def _attend(q, k, v, scale, *, train=False, attn_drop=0.0, generator=None):
+def _attend(q, k, v, scale, *, train=False, attn_drop=0.0, generator=None,
+            heads=None):
     """Softmax attention over (B, N, H, hd). With attention dropout live
     (training, attn_drop > 0 and a generator to draw from) the matrix must
     exist, so the plain path runs; every other call goes to the fused
-    kernels."""
+    kernels. `heads` (start, full count) places q's heads among a
+    tensor-parallel block's (the dropout mask's part)."""
     if train and attn_drop > 0.0 and generator is not None:
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k).float()
         attn = torch.softmax(attn * scale, dim=-1).to(q.dtype)
-        attn = dropout(attn, attn_drop, train, generator)
+        attn = dropout(attn, attn_drop, train, generator,
+                       part=None if heads is None else (1,) + tuple(heads))
         return torch.einsum("bhnm,bmhd->bnhd", attn, v)
     return fused_mha(q, k, v, scale)
 
@@ -286,8 +351,11 @@ def vit_forward(params: ViT, x, cfg: ModelCfg, *, train: bool = False,
     tok = torch.cat(lead + [tok], dim=1) + params.pos_embed.to(tok.dtype)
     tok = dropout(tok, cfg.drop_rate, train, generator)
     for i, (bp, dp) in enumerate(zip(params.blocks, cfg.drop_path_schedule())):
-        tok = block_forward(bp, tok, cfg, dp, train=train, generator=generator,
-                            block_idx=i)
+        def blk(t, g, _bp=bp, _dp=dp, _i=i):
+            return block_forward(_bp, t, cfg, _dp, train=train, generator=g,
+                                 block_idx=_i)
+        tok = remat_block(blk, generator, tok) if cfg.remat \
+            else blk(tok, generator)
     tok = layer_norm(tok, params.norm.weight, params.norm.bias, eps=cfg.ln_eps)
     if cfg.distilled:
         logits = linear(params.head, tok[:, 0]).float()

@@ -16,7 +16,11 @@ per card:
 The steps, the compress pass and the evaluation use the collectives below
 whenever a process group is up; without one they are the identity. Every
 collective packs its tensors into one flat buffer per dtype, so a step
-costs one all-reduce, not one a leaf.
+costs one all-reduce, not one a leaf. Each takes an optional `group`, a
+subgroup of the world; `data_group()` and `model_group()` give the two
+axes of the active (data, model) mesh (`parallel.mesh.make_mesh`), and
+the whole world while no mesh is active, so a data-parallel run without a
+mesh is what it was.
 """
 
 from __future__ import annotations
@@ -39,6 +43,64 @@ def rank_world() -> Tuple[int, int]:
     if not group_active():
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
+
+
+# the active (data, model) DeviceMesh and the default group it was made in:
+# a mesh of a group since destroyed is not active
+_MESH: List = []
+
+
+def set_active_mesh(mesh) -> None:
+    """Make `mesh` (a DeviceMesh with 'data' and 'model' axes, or None) the
+    one whose axes `data_group()` / `model_group()` give."""
+    _MESH[:] = [] if mesh is None else [(mesh, dist.group.WORLD)]
+
+
+def active_mesh():
+    """The active mesh, or None (none set, or its process group is gone)."""
+    if not _MESH or not group_active():
+        return None
+    mesh, world = _MESH[0]
+    return mesh if world is dist.group.WORLD else None
+
+
+def _axis(name: str):
+    mesh = active_mesh()
+    return None if mesh is None else mesh.get_group(name)
+
+
+def data_group():
+    """The process group of this rank's 'data' axis of the active mesh (the
+    ranks that hold other rows of the batch), the world without a mesh."""
+    return _axis("data")
+
+
+def model_group():
+    """The process group of this rank's 'model' axis of the active mesh
+    (the ranks that hold other shards of the same rows), the world without
+    a mesh."""
+    return _axis("model")
+
+
+def group_rank_size(group=None) -> Tuple[int, int]:
+    """(this rank's place in `group`, its size); the world's for None, (0, 1)
+    without a process group."""
+    if not group_active():
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def data_rank_world() -> Tuple[int, int]:
+    """(rank, size) on the data axis: the rows this rank holds of a global
+    batch, and into how many parts the batch splits."""
+    return group_rank_size(data_group())
+
+
+def model_rank_world() -> Tuple[int, int]:
+    """(rank, size) on the model axis; (0, 1) without a mesh."""
+    if active_mesh() is None:
+        return 0, 1
+    return group_rank_size(model_group())
 
 
 def local_rank() -> int:
@@ -128,48 +190,53 @@ def _flat_apply(tensors: Sequence[torch.Tensor], op) -> None:
                                        for v, t in zip(parts, dst)])
 
 
-def all_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average every tensor over the ranks, in place (floating point)."""
+def all_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Average every tensor over the ranks of `group` (the world for
+    None), in place (floating point)."""
     if not group_active() or not tensors:
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
 
     def op(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(world)
 
     _flat_apply(tensors, op)
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Every tensor takes rank `src`'s values, in place."""
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0,
+               group=None) -> None:
+    """Every tensor takes the values of `group`'s rank `src` (a global
+    rank), in place."""
     if not group_active() or not tensors:
         return
-    _flat_apply(tensors, lambda flat: dist.broadcast(flat, src))
+    _flat_apply(tensors,
+                lambda flat: dist.broadcast(flat, src, group=group))
 
 
-def all_sum(values: Sequence[float]) -> List[float]:
-    """The sum over the ranks of a few host numbers, in float64."""
+def all_sum(values: Sequence[float], group=None) -> List[float]:
+    """The sum over the ranks of `group` of a few host numbers, in
+    float64."""
     if not group_active():
         return [float(v) for v in values]
     t = torch.tensor([float(v) for v in values], dtype=torch.float64,
                      device=collective_device())
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t.cpu().tolist()
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The global batch from every rank's rows of `x` (dim 0), rank 0's
-    first: one all-reduce of a zero buffer each rank fills at its place,
-    which every backend takes for card tensors (gloo gathers only host
-    ones) and which adds only zeros, so the rows come back exact."""
-    rank, world = rank_world()
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The rows of `x` (dim 0) of every rank of `group`, in rank order: one
+    all-reduce of a zero buffer each rank fills at its place, which every
+    backend takes for card tensors (gloo gathers only host ones) and which
+    adds only zeros, so the rows come back exact."""
+    rank, world = group_rank_size(group)
     if world == 1:
         return x
     mb = x.shape[0]
     out = x.new_zeros((world * mb,) + tuple(x.shape[1:]))
     out[rank * mb:(rank + 1) * mb] = x
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 

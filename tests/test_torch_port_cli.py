@@ -82,14 +82,14 @@ def _jax_exported(root):
     meta = {"exported": True, "model_cfg": dataclasses.asdict(dcfg)}
     JCk.save_checkpoint(os.path.join(root, "jax_exported"), params=dense,
                         meta=meta)
-    # the port's ModelCfg lacks the JAX package's rematerialisation field
-    # (a memory device of XLA's, not set here)
+    # the port's ModelCfg has every field of the JAX package's, its
+    # rematerialisation switch (not set here) among them
     known = {f.name for f in dataclasses.fields(ModelCfg)}
     fields = json.loads(json.dumps(meta["model_cfg"]))
-    assert {k: v for k, v in fields.items() if k not in known} == {
-        "remat": False}
-    pcfg = ck.model_cfg_from_meta({k: v for k, v in fields.items()
-                                   if k in known}, ModelCfg)
+    assert {k: v for k, v in fields.items() if k not in known} == {}
+    assert fields["remat"] is False
+    pcfg = ck.model_cfg_from_meta(fields, ModelCfg)
+    assert pcfg.remat is False
     port = load_from_jax(ViT(pcfg), np_tree(dense))
     ck.save_checkpoint(os.path.join(root, "port_exported"), params=port,
                        meta={"exported": True,

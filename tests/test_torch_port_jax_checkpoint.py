@@ -471,7 +471,7 @@ def test_finetune_and_export_clis_take_a_jax_supernet(jax_run, tmp_path):
     dense, cfg = finetune.load_searched_model(
         jax_run["sdir"], args, TINY["num_classes"], "cpu")
     jfields = dataclasses.asdict(jcfg)
-    assert jfields.pop("remat") is False
+    assert jfields["remat"] is False
     assert dataclasses.asdict(cfg) == jfields
     want = flatten_from_jax(np_tree(jdense))
     got = dict(dense.named_parameters())
@@ -536,6 +536,7 @@ def test_committed_searches_export_to_their_finetunes(run):
     ft = ck.latest_meta(os.path.join(REPO, run, "ft", "best"))["model_cfg"]
     assert dcfg.embed_dim == ft["embed_dim"] == 276
     assert [list(b) for b in dcfg.block_overrides] == ft["block_overrides"]
-    # the finetune's config as the port reads it (remat ignored)
+    # the finetune's config as the port reads it (remat kept)
     cfg = ck.model_cfg_from_meta(ft, type(dcfg))
     assert cfg.block_overrides == dcfg.block_overrides
+    assert cfg.remat is ft["remat"]

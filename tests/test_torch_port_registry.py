@@ -3,8 +3,8 @@ family's pieces against ofb_tpu on the CPU, in fp32, from the same weights:
 
 * every name of the JAX registry but the Swin family's (50: the DeiT
   supernets and dense models, the stock ViTs, in21k, MIIL and the
-  `vit_deit_*` aliases) builds the same config (`remat` aside, which the
-  port does not have) with the same default class count and kind; so do
+  `vit_deit_*` aliases) builds the same config (`remat` among its fields)
+  with the same default class count and kind; so do
   the six Swin names (dense and searchable), whose family the port now
   has;
 * a tiny in21k-style ViT (tanh pre-logits, `representation_size`): logits
@@ -60,7 +60,7 @@ def test_configs_match_jax(name):
     jb = JR.create_model(name)
     pb = R.create_model(name, device="cpu")
     want = dataclasses.asdict(jb.cfg)
-    assert want.pop("remat") is False
+    assert want["remat"] is False
     assert dataclasses.asdict(pb.cfg) == want
     assert pb.kind == jb.kind
     if jb.kind == "mim":
