@@ -114,7 +114,8 @@ which raises (and so exits non-zero) on failure:
      finetunes recorded), each subnet's train and eval steps timed over 4
      calls after a warm-up at batch 64, bf16, all on the resident body; the
      dense model of a TPU finetune's meta, one eval batch; (b) in process
-     through the CLIs, SYNTHETIC 1024 at staging 256, bf16: `cli.finetune
+     through the CLIs, SYNTHETIC 512 (VIT_IMAGES; 1024 before phase 14
+     came) at staging 256, bf16: `cli.finetune
      --from-scratch --cache-device` one epoch and `cli.eval` of its best
      for ViT-B/16 (batch 64, resident body), ViT-L/16 at 384 and ViT-H/14
      (batch 32, streaming body); one eval batch of the in21k ViT-B/16
@@ -179,12 +180,39 @@ which raises (and so exits non-zero) on failure:
      plain one, DeiT-S and DeiT-B at REMAT_BATCH from one seed: equal
      after a step (ArchState bit-identical, the rest within TOL_GRAPH),
      then ms a step in turns and each step's peak memory.
+ 14. the ladder (`run_ladder`): `bash ofb_tpu_torch/scripts/ladder_imnet.sh`
+     as a user runs it, DeiT-S at full width and depth (bf16, 224 px,
+     batch 64, the JAX script's --cache-device --planned-epoch), two FLOPs
+     targets (LADDER_TARGETS), EPOCHS 3 with FUSE_POINT 1 (the search CLI
+     breaks after the fuse-point epoch, so stage 1 runs epochs 0 and 1 and
+     stage 2 resumes for epoch 2) and one finetune epoch, on a small
+     ImageFolder of JPEGs that `make_imagefolder` writes (IMNET; the
+     card's installation has Pillow, and no libjpeg headers for the native
+     decoder, so the JPEGs decode through Pillow). A `sitecustomize.py`
+     of this script's, on PYTHONPATH for the ladder only, prints each
+     process's attention launches (`LADDER_LAUNCHES`) into its stage's log
+     at exit and keeps a copy of the running checkpoint a stage-1 search
+     leaves (`stage1_ckpt`). Asserted: stage 1 stops at the fuse point and
+     stage 2 resumes at epoch 2; ft/best, ft/running_ckpt and
+     dense_ft/best exist; ladder.json has the dense row and one row a
+     rung, each row's GFLOPs `dense_vit_gflops` of its exported model_cfg;
+     every STATUS.json says the rung is done; resident launches in every
+     search and finetune stage and none of another body; then the same
+     command again skips every stage (no log gains an epoch line) and
+     leaves ladder.json byte-identical; then, side by side (they touch
+     other files of the root), `ladder_hard_eval` writes an acc1 in
+     [0, 100] for every target (into a file of its own, so that the
+     table stays the ladder's), `prune_timeline` reads a rung's
+     search1.log, and a rung whose running_ckpt is put back to the
+     stage-1 copy resumes stage 2 at epoch 2 (no epoch 0 or 1 again).
+     Each stage's seconds and sustained epoch img/s are printed.
 
-The line before the last is the kernels' JSON (`launches` sums the ten
+The line before the last is the kernels' JSON (`launches` sums the eleven
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
 `launches_cli`, `launches_384`, `launches_planned`, `launches_vit`,
-`launches_swin` (0), `launches_dist` (phase 12's processes) and
-`launches_tp` (phase 13's (a) to (c)) give each;
+`launches_swin` (0), `launches_dist` (phase 12's processes),
+`launches_tp` (phase 13's (a) to (c)) and `launches_ladder` (phase 14's
+processes) give each;
 the general body's times are fp32's); the
 last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1785,7 +1813,7 @@ TPU_RUNS = (("runs/organic_a8", "runs/organic_a8/torganic/ft/best"),
 # phase 10's timed calls of each TPU subnet's train and eval steps
 SUBNET_CALLS = 4
 # phase 10's CLI runs: SYNTHETIC's train and val sets, each
-VIT_IMAGES = 1024
+VIT_IMAGES = 512
 # phase 10's CLI runs: (registry name, input size, batch, the body that
 # serves its bf16 attention)
 VIT_CLI = (("vit_base_patch16_224", 224, 64, "resident"),
@@ -2321,11 +2349,13 @@ def _start(cmd, env):
                             cwd=os.path.dirname(os.path.abspath(__file__)))
 
 
-def _finish(procs, what):
-    """Wait for every process (DIST_TIMEOUT in all); a timeout or a non-zero
-    exit ends them all and fails the phase. Returns their stdouts."""
+def _finish(procs, what, timeout=None):
+    """Wait for every process (`timeout` seconds in all, DIST_TIMEOUT by
+    default); a timeout or a non-zero exit ends them all and fails the
+    phase. Returns their stdouts."""
     import signal
-    outs, deadline = [], time.perf_counter() + DIST_TIMEOUT
+    outs = []
+    deadline = time.perf_counter() + (timeout or DIST_TIMEOUT)
     try:
         for p in procs:
             out, err = p.communicate(
@@ -2333,7 +2363,8 @@ def _finish(procs, what):
             sys.stderr.write(err[-4000:])
             if p.returncode != 0:
                 raise AssertionError(f"{what}: a process exited "
-                                     f"{p.returncode}:\n{err[-3000:]}")
+                                     f"{p.returncode}:\n{out[-3000:]}\n"
+                                     f"{err[-3000:]}")
             outs.append(out)
     finally:
         for p in procs:
@@ -3133,6 +3164,272 @@ def run_tp(A, card, root):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the ladder (ofb_tpu_torch/scripts/), as a user runs it
+# ---------------------------------------------------------------------------
+
+LADDER_MODEL = "deit_small_patch16_224_mim"
+LADDER_TARGETS = ("0.45", "0.70")
+LADDER_EPOCHS = 3          # stage 1: epochs 0 and 1 (fuse point 1); stage 2: 2
+LADDER_FUSE_POINT = 1
+LADDER_FT_EPOCHS = 1
+LADDER_BATCH = 64
+# the ImageFolder: train and val JPEGs a class (10 classes: 5 train steps
+# an epoch at LADDER_BATCH), the noise of make_imagefolder's ladder recipe
+LADDER_DATA = dict(classes=10, per_class=32, val_per_class=8, noise=0.35)
+LADDER_TIMEOUT = 600       # seconds one invocation of the ladder may take
+# imported first in every process of the ladder: at exit, the attention
+# launches of the process (a CLI's or a tool's) on its stdout, which the
+# ladder script tees into the stage's log, and, after a stage-1 search
+# (its fuse point before its last epoch), a copy of the running checkpoint
+# it left
+LADDER_HOOK = '''\
+import atexit, json, os, shutil, sys, time
+
+_T0 = time.time()
+
+
+def _opt(name):
+    return sys.argv[sys.argv.index(name) + 1] if name in sys.argv else None
+
+
+def _at_exit():
+    A = sys.modules.get("ofb_tpu_torch.ops.attention")
+    if A is None:
+        return
+    counts = {}
+    for (wrapper, body), n in A.launch_counts().items():
+        counts.setdefault(wrapper, {})[body] = n
+    out, fuse, epochs = (_opt("--output_dir"), _opt("--fuse_point"),
+                         _opt("--epochs"))
+    if sys.argv[0].endswith(os.path.join("cli", "search.py")) and out \\
+            and fuse is not None and int(fuse) < int(epochs) - 1:
+        shutil.copytree(os.path.join(out, "running_ckpt"),
+                        os.path.join(out, "stage1_ckpt"), dirs_exist_ok=True)
+    print("LADDER_LAUNCHES " + json.dumps(
+        {"argv": sys.argv, "counts": counts,
+         "seconds": round(time.time() - _T0, 1)}), flush=True)
+
+
+atexit.register(_at_exit)
+'''
+
+
+def _ladder_runs(text):
+    """[(argv, counts, seconds)] of the LADDER_LAUNCHES lines in `text`."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("LADDER_LAUNCHES "):
+            r = json.loads(line[len("LADDER_LAUNCHES "):])
+            out.append((r["argv"], r["counts"], r["seconds"]))
+    return out
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read()
+
+
+def _ladder(env, root, what, **extra):
+    """One invocation of ladder_imnet.sh on `root` in a process group of
+    its own; returns its output and seconds (a failure or LADDER_TIMEOUT
+    fails the phase)."""
+    t0 = time.perf_counter()
+    out, = _finish([_start(["bash", "ofb_tpu_torch/scripts/ladder_imnet.sh",
+                            root], dict(env, **extra))], what,
+                   timeout=LADDER_TIMEOUT)
+    return out, time.perf_counter() - t0
+
+
+def run_ladder(A, card, root):
+    """Phase 14: `ofb_tpu_torch/scripts/ladder_imnet.sh` as a subprocess at
+    DeiT-S full width and depth on a small JPEG ImageFolder (bf16, batch
+    LADDER_BATCH, --cache-device --planned-epoch), its artifacts, skip on
+    a second invocation, the hard eval, a prune timeline and a stage-2
+    resume from the stage-1 checkpoint. Returns the attention launches of
+    the first invocation's processes."""
+    from ofb_tpu_torch.core.checkpoint import model_cfg_from_meta
+    from ofb_tpu_torch.models.vit import ModelCfg
+    from ofb_tpu_torch.scripts import make_imagefolder
+    from ofb_tpu_torch.scripts.digits_story import dense_vit_gflops
+
+    work = tempfile.mkdtemp(prefix="ofb_ladder_", dir=root)
+    hook, bindir = os.path.join(work, "hook"), os.path.join(work, "bin")
+    os.makedirs(hook)
+    os.makedirs(bindir)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(LADDER_HOOK)
+    # `python` in the ladder script is this interpreter (a wrapper, not a link:
+    # a virtual environment is found from the path an interpreter runs as)
+    with open(os.path.join(bindir, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    env = _dist_env(PYTHONPATH=os.pathsep.join(
+        [hook] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        PATH=bindir + os.pathsep + os.environ.get("PATH", ""))
+    # the train / val set and a harder val set, by make_imagefolder's main
+    # in this process
+    t0 = time.perf_counter()
+    data, hard = os.path.join(work, "imfolder"), os.path.join(work, "hard")
+    d = LADDER_DATA
+    argv = sys.argv
+    try:
+        for args in (["--root", data, "--per-class", str(d["per_class"]),
+                      "--noise", str(d["noise"]), "--seed", "0"],
+                     ["--root", hard, "--per-class", "0", "--noise", "0.6",
+                      "--seed", "7"]):
+            sys.argv = ["make_imagefolder", "--classes", str(d["classes"]),
+                        "--val-per-class", str(d["val_per_class"])] + args
+            make_imagefolder.main()
+    finally:
+        sys.argv = argv
+    data_s = time.perf_counter() - t0
+    env.update(DATA=data, DATA_SET="IMNET", DEVICE="cuda",
+               MODEL=LADDER_MODEL, TARGETS=" ".join(LADDER_TARGETS),
+               EPOCHS=str(LADDER_EPOCHS), FUSE_POINT=str(LADDER_FUSE_POINT),
+               FT_EPOCHS=str(LADDER_FT_EPOCHS), BATCH=str(LADDER_BATCH))
+    lroot = os.path.join(work, "ladder")
+    rungs = {t: os.path.join(lroot, "t" + t) for t in LADDER_TARGETS}
+    logs = {f"{t}/{stage}": os.path.join(r, stage + ".log")
+            for t, r in rungs.items()
+            for stage in ("search1", "search2", "finetune")}
+    logs["dense"] = os.path.join(lroot, "dense_ft.log")
+
+    # the first invocation: every stage of every rung, then the comparator
+    out1, first_s = _ladder(env, lroot, "14 ladder")
+    texts = {k: _read(p) for k, p in logs.items()}
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+    stages = {}
+    for k, text in texts.items():
+        runs = _ladder_runs(text)
+        eps = _epochs(text)
+        if len(runs) != 1:
+            raise AssertionError(f"14 {k}: {len(runs)} processes logged")
+        _, counts, sec = runs[0]
+        if counts["attention_fwd"]["resident"] == 0 \
+                or counts["attention_bwd"]["resident"] == 0 \
+                or any(n for c in counts.values() for b, n in c.items()
+                       if b != "resident"):
+            raise AssertionError(f"14 {k}: attention launches {counts}")
+        _add(totals, counts)
+        stages[k] = {"seconds": sec, "epochs": [e[0] for e in eps],
+                     "img_s": [e[1] for e in eps], "counts": counts}
+    last = LADDER_EPOCHS - 1
+    for t, r in rungs.items():
+        s1, s2 = texts[f"{t}/search1"], texts[f"{t}/search2"]
+        if stages[f"{t}/search1"]["epochs"] != list(range(
+                LADDER_FUSE_POINT + 1)) or f"breaking at fuse_point " \
+                f"{LADDER_FUSE_POINT}" not in s1 or "resumed from" in s1:
+            raise AssertionError(f"14 t{t}: stage 1 did not stop at the "
+                                 f"fuse point:\n{s1[-2000:]}")
+        if stages[f"{t}/search2"]["epochs"] != [last] or \
+                f"resumed from {r}/running_ckpt at epoch {last}" not in s2:
+            raise AssertionError(f"14 t{t}: stage 2 did not resume at "
+                                 f"epoch {last}:\n{s2[-2000:]}")
+        for part in ("ft/best", "ft/running_ckpt", "stage1_ckpt"):
+            if not os.path.exists(os.path.join(r, part, "meta.json")):
+                raise AssertionError(f"14 t{t}: no {part}")
+        st = json.loads(_read(os.path.join(r, "STATUS.json")))
+        if st["stage"] != "finetune" or not st["search_done"] \
+                or st["ft_epoch"] != LADDER_FT_EPOCHS - 1:
+            raise AssertionError(f"14 t{t}: STATUS.json {st}")
+    if not os.path.exists(os.path.join(lroot, "dense_ft", "best",
+                                       "meta.json")):
+        raise AssertionError("14: no dense_ft/best")
+    ladder_json = _read(os.path.join(lroot, "ladder.json"))
+    rows = {r["name"]: r for r in json.loads(ladder_json)}
+    if sorted(rows) != sorted(["dense"] + ["t" + t for t in LADDER_TARGETS]):
+        raise AssertionError(f"14: ladder.json rows {sorted(rows)}")
+    for name, row in rows.items():
+        src = os.path.join(lroot, "dense_ft", "best") if name == "dense" \
+            else os.path.join(lroot, name, "ft", "running_ckpt")
+        cfg = model_cfg_from_meta(json.loads(_read(os.path.join(
+            src, "meta.json")))["model_cfg"], ModelCfg)
+        if row["gflops"] != dense_vit_gflops(cfg) or not row.get("params"):
+            raise AssertionError(f"14 {name}: ladder.json row {row}, "
+                                 f"dense_vit_gflops {dense_vit_gflops(cfg)}")
+    top = json.loads(_read(os.path.join(lroot, "STATUS.json")))
+    if not top["summary"] or len(top["rungs"]) != len(LADDER_TARGETS) + 1:
+        raise AssertionError(f"14: root STATUS.json {top}")
+
+    # the same command again: every stage skipped, the table unchanged
+    sizes = {k: os.path.getsize(p) for k, p in logs.items()}
+    out2, again_s = _ladder(env, lroot, "14 ladder again")
+    for what in ("stage 1 complete", "stage 2 complete",
+                 "finetune complete"):
+        if out2.count(what) != len(LADDER_TARGETS):
+            raise AssertionError(f"14 again: '{what}' not printed for "
+                                 f"every rung:\n{out2[-3000:]}")
+    grew = [k for k, p in logs.items() if os.path.getsize(p) != sizes[k]]
+    clis = [r for r in _ladder_runs(out2)
+            if os.sep + "cli" + os.sep in r[0][0]]
+    if grew or _epochs(out2) or clis:
+        raise AssertionError(f"14 again: a stage ran (logs grown: {grew})")
+    if _read(os.path.join(lroot, "ladder.json")) != ladder_json:
+        raise AssertionError("14 again: ladder.json changed")
+
+    # meanwhile (other directories of the root, the table left alone): the
+    # hard eval of every target on the val split and a harder one, into a
+    # file of its own, and a rung's prune timeline; then a rung put back to
+    # its stage-1 checkpoint resumes stage 2
+    t1 = time.perf_counter()
+    he_path = os.path.join(work, "hard_eval.json")
+    t045 = rungs[LADDER_TARGETS[0]]
+    tools = [_start([sys.executable, "-m",
+                     "ofb_tpu_torch.scripts.ladder_hard_eval", "--root", lroot,
+                     "--val-roots", data, hard, "--device", "cuda", "--out",
+                     he_path], env),
+             _start([sys.executable, "-m",
+                     "ofb_tpu_torch.scripts.prune_timeline",
+                     os.path.join(t045, "search1.log"), "--log-txt",
+                     os.path.join(t045, "log.txt")], env)]
+    shutil.rmtree(os.path.join(t045, "running_ckpt"))
+    shutil.copytree(os.path.join(t045, "stage1_ckpt"),
+                    os.path.join(t045, "running_ckpt"))
+    before = _read(logs[f"{LADDER_TARGETS[0]}/search2"])
+    out3, resume_s = _ladder(env, lroot, "14 ladder resume",
+                             TARGETS=LADDER_TARGETS[0])
+    he_out, pt = _finish(tools, "14 ladder_hard_eval, prune_timeline")
+    tools_s = time.perf_counter() - t1
+    new = _read(logs[f"{LADDER_TARGETS[0]}/search2"])[len(before):]
+    if "stage 1 complete (epoch 1)" not in out3 \
+            or [e[0] for e in _epochs(new)] != [last] \
+            or f"resumed from {t045}/running_ckpt at epoch {last}" \
+            not in new:
+        raise AssertionError(f"14 resume: stage 2 did not resume at epoch "
+                             f"{last}:\n{out3[-3000:]}")
+    he = json.loads(_read(he_path))
+    names = sorted(r["name"] for r in he["rows"])
+    want = sorted(f"{n}/{k}" for n in ["dense"] + ["t" + t for t in
+                                                   LADDER_TARGETS]
+                  for k in ("best", "final"))
+    if names != want or not all(
+            0.0 <= a <= 100.0 for r in he["rows"] for a in r["acc1"].values()):
+        raise AssertionError(f"14 hard eval: {he['rows']}")
+    (_, he_counts, _), = _ladder_runs(he_out)
+    log(f"ladder (14) on {card}: ladder_imnet.sh, {LADDER_MODEL} bf16, "
+        f"batch {LADDER_BATCH}, targets {LADDER_TARGETS}, EPOCHS "
+        f"{LADDER_EPOCHS}, FUSE_POINT {LADDER_FUSE_POINT}, FT_EPOCHS "
+        f"{LADDER_FT_EPOCHS}, IMNET ImageFolder of "
+        f"{d['classes'] * d['per_class']} + "
+        f"{d['classes'] * d['val_per_class']} JPEGs ({data_s:.1f} s to "
+        f"write); first invocation {first_s:.1f} s, again (all skipped) "
+        f"{again_s:.1f} s, resume of stage 2 {resume_s:.1f} s beside the "
+        f"hard eval and the prune timeline ({tools_s:.1f} s in all); prune "
+        f"timeline: {pt.strip().splitlines()[-1]}")
+    for k, v in stages.items():
+        log(f"  ladder {k}: {v['seconds']} s (process), epochs {v['epochs']} "
+            f"at {v['img_s']} img/s sustained, launches {v['counts']}")
+    log("  ladder.json: " + json.dumps(
+        [{k: r.get(k) for k in ("name", "gflops", "params", "embed_dim",
+                                "acc1", "searched_gflops")}
+         for r in rows.values()]))
+    log("  hard eval acc1 by val root: " + json.dumps(
+        {r["name"]: {os.path.basename(v): a for v, a in r["acc1"].items()}
+         for r in he["rows"]}) + f"; launches {he_counts}")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3185,6 +3482,7 @@ def main():
         swin = timed("11", run_swin, A, smi, root)
         dist = timed("12", run_dist, A, smi, root)
         tp = timed("13", run_tp, A, smi, root)
+        ladder = timed("14", run_ladder, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"seconds by phase: {json.dumps(seconds)}")
@@ -3204,7 +3502,8 @@ def main():
                       launches_cli=cli[name], launches_384=at384[name],
                       launches_planned=planned[name],
                       launches_vit=vit[name], launches_swin=swin[name],
-                      launches_dist=dist[name], launches_tp=tp[name])
+                      launches_dist=dist[name], launches_tp=tp[name],
+                      launches_ladder=ladder[name])
         # the streaming body's times are at 577 tokens; the general body's
         # in fp32 at 197 tokens (its 577-token times stand beside them)
         timed = stream_fields[name] if name.endswith("_streaming") \

@@ -282,14 +282,18 @@ def _refuse_orbax(path: str, meta: Dict[str, Any]) -> None:
 def load_checkpoint_raw(path: str) -> Dict[str, Any]:
     """The JAX package's `load_checkpoint_raw`: {"meta": meta, <part>: the
     part's tree of dicts, lists and arrays} for every part meta.json lists
-    whose `<part>.msgpack` exists, shapes from the files."""
+    whose `<part>.msgpack` exists, shapes from the files; of the port's
+    own directories, the flat {name: tensor} dict of each `<part>.pt`."""
     meta = _read_meta(path)
     _refuse_orbax(path, meta)
     out: Dict[str, Any] = {"meta": meta}
     for name in meta.get("parts", []):
-        fpath = os.path.join(path, name + ".msgpack")
-        if os.path.exists(fpath):
-            out[name] = read_tree(fpath)
+        base = os.path.join(path, name)
+        if os.path.exists(base + ".msgpack"):
+            out[name] = read_tree(base + ".msgpack")
+        elif os.path.exists(base + ".pt"):
+            out[name] = torch.load(base + ".pt", map_location="cpu",
+                                   weights_only=True)
     return out
 
 
