@@ -206,14 +206,33 @@ which raises (and so exits non-zero) on failure:
      search1.log, and a rung whose running_ckpt is put back to the
      stage-1 copy resumes stage 2 at epoch 2 (no epoch 0 or 1 again).
      Each stage's seconds and sustained epoch img/s are printed.
+ 15. the tools and examples (`run_tools`), each through its `main(argv)`
+     in this process, its attention launches counted from 0:
+     `scripts.perf_breakdown` (DeiT-S, batch 256, 20 steps: the six rows,
+     every img/s and MFU finite and positive, eval_fwd faster than
+     search_step, (2 + 20) x 12 resident launches a row, 5 rows forward
+     and 4 backward), `scripts.augment_breakdown` (256, 256 -> 224, 20
+     iterations; the bf16 geometry's mean delta within one uint8 step),
+     `scripts.swin_breakdown` (Swin-T, batch 128; its stubs restored),
+     `scripts.kpad_probe` (its shapes; also once as `python -m`, beside
+     the writing of the ImageFolder), `scripts.data_bench`
+     (256 JPEGs from `make_imagefolder`; Pillow only where the native
+     decoder does not build), `examples.minimal_search` (fp32: 12 + 12
+     general launches), `examples.compression_story` (1500 search and 600
+     finetune steps; exported FLOPs below dense; its launches by body
+     reported) and `dryrun.entry()` (finite (8, 1000) logits, 12 resident
+     launches); then, where the story's subnet has head dims off a
+     multiple of 8, the general body in bf16 at its shapes (batch 128)
+     beside the twin, SDPA and the bound.
 
-The line before the last is the kernels' JSON (`launches` sums the eleven
+The line before the last is the kernels' JSON (`launches` sums the twelve
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
 `launches_cli`, `launches_384`, `launches_planned`, `launches_vit`,
 `launches_swin` (0), `launches_dist` (phase 12's processes),
-`launches_tp` (phase 13's (a) to (c)) and `launches_ladder` (phase 14's
-processes) give each;
-the general body's times are fp32's); the
+`launches_tp` (phase 13's (a) to (c)), `launches_ladder` (phase 14's
+processes) and `launches_tools` (phase 15) give each;
+the general body's times are fp32's, with a `bf16_story` list, one entry
+a shape at which phase 15 checked and timed it in bf16); the
 last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -496,9 +515,11 @@ def check_kernels(A, cases=None):
     search step's shape and type (DeiT-S, bf16), of the general body at
     that shape in fp32 (the type it serves) and of the streaming body at
     DeiT-S at 384 pixels, batch 64. `cases` ((shape, dtype, body), ...)
-    replaces phase 2's list (phase 13's head counts)."""
+    replaces phase 2's list (phase 13's head counts, phase 15's bf16
+    general shapes, whose errors are returned by (shape, kernel name))."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
+    cases_given = cases is not None
     if cases is None:
         cases = [(shape, torch.bfloat16, "resident") for shape in RESIDENT]
         cases += [(shape, torch.bfloat16, "streaming")
@@ -548,6 +569,9 @@ def check_kernels(A, cases=None):
             tag = "" if body == "resident" else "_" + body
             main_err["attention_fwd" + tag] = fwd[0]
             main_err["attention_bwd" + tag] = max(e[0] for e in bwd)
+        if cases_given and body == "general" and dtype == torch.bfloat16:
+            main_err[shape, "attention_fwd_general"] = fwd[0]
+            main_err[shape, "attention_bwd_general"] = max(e[0] for e in bwd)
     return main_err
 
 
@@ -3272,17 +3296,13 @@ def run_ladder(A, card, root):
     t0 = time.perf_counter()
     data, hard = os.path.join(work, "imfolder"), os.path.join(work, "hard")
     d = LADDER_DATA
-    argv = sys.argv
-    try:
-        for args in (["--root", data, "--per-class", str(d["per_class"]),
-                      "--noise", str(d["noise"]), "--seed", "0"],
-                     ["--root", hard, "--per-class", "0", "--noise", "0.6",
-                      "--seed", "7"]):
-            sys.argv = ["make_imagefolder", "--classes", str(d["classes"]),
-                        "--val-per-class", str(d["val_per_class"])] + args
-            make_imagefolder.main()
-    finally:
-        sys.argv = argv
+    for args in (["--root", data, "--per-class", str(d["per_class"]),
+                  "--noise", str(d["noise"]), "--seed", "0"],
+                 ["--root", hard, "--per-class", "0", "--noise", "0.6",
+                  "--seed", "7"]):
+        make_imagefolder.main(["--classes", str(d["classes"]),
+                               "--val-per-class", str(d["val_per_class"])]
+                              + args)
     data_s = time.perf_counter() - t0
     env.update(DATA=data, DATA_SET="IMNET", DEVICE="cuda",
                MODEL=LADDER_MODEL, TARGETS=" ".join(LADDER_TARGETS),
@@ -3430,6 +3450,195 @@ def run_ladder(A, card, root):
     return totals
 
 
+TOOLS_IMAGES = dict(classes=8, per_class=32)   # data_bench's ImageFolder
+TOOLS_STEPS = 20           # perf_breakdown's and swin_breakdown's steps
+TOOLS_ITERS = 20           # augment_breakdown's iterations
+STORY_STEPS = (1500, 600)  # compression_story's search and finetune steps
+ONE_UINT8_STEP = 0.017     # (1 / 255) / std in normalised units
+
+
+def _tool(A, what, fn, *args):
+    """fn(*args) with the attention counts from 0: (its result, the
+    launches by wrapper and body, seconds)."""
+    A.reset_launch_counts()
+    t = time.perf_counter()
+    out = fn(*args)
+    sec = time.perf_counter() - t
+    counts = by_body(A)
+    log(f"  {what}: {sec:.1f} s, attention launches {counts}")
+    return out, counts, sec
+
+
+def _positive(what, values):
+    bad = {k: v for k, v in values.items()
+           if not (isinstance(v, float) and math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"15 {what}: not finite and positive: {bad}")
+
+
+def time_general_bf16(A, shapes):
+    """Phase 15, continued: the general body in bf16 at the attention
+    shapes (B, N, H, d) through which the story's exported subnet sent it:
+    first held against its fp32 twin at TOL["bfloat16"] (check_kernels),
+    then timed beside the twin, SDPA and the bf16 bound (bytes at the HBM
+    rate, operations at the dense bf16 peak: the body runs WMMA)."""
+    import torch
+    errs = check_kernels(A, [(s, torch.bfloat16, "general") for s in shapes])
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for B, N, H, d in shapes:
+        q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        row = dict(shape=[B, N, H, d], body="general", dtype="bfloat16")
+        for n in ("fwd", "bwd"):
+            row[f"{n}_max_abs_err"] = errs[(B, N, H, d),
+                                          f"attention_{n}_general"]
+        _bounds(row, B, N, H, d, 2, BF16_FLOPS)
+        _time_row(row, _attention_calls(A, q, k, v, do, "general"),
+                  f"{(B, N, H, d)} bf16, general body (the story's)")
+        rows.append(row)
+    return rows
+
+
+def run_tools(A, card, root):
+    """Phase 15: the performance tools, the examples and `dryrun.entry`,
+    each through its `main(argv)` in this process (kpad_probe also once as
+    `python -m`), at full width: perf_breakdown (DeiT-S, batch 256),
+    augment_breakdown (256, 256 -> 224), swin_breakdown (Swin-T, 128),
+    kpad_probe (its shapes), data_bench (an ImageFolder of 256 JPEGs),
+    minimal_search, compression_story (its default lengths) and entry().
+    Each one's attention launches are counted from 0. Returns (the
+    launches of the phase, the general body's bf16 rows, where the story
+    launched it)."""
+    import torch
+    from ofb_tpu_torch import dryrun
+    from ofb_tpu_torch.examples import compression_story, minimal_search
+    from ofb_tpu_torch.models import swin as swin_mod
+    from ofb_tpu_torch.scripts import (augment_breakdown, data_bench,
+                                       kpad_probe, make_imagefolder,
+                                       perf_breakdown, swin_breakdown)
+
+    totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
+    log(f"tools (15) on {card}:")
+    work = tempfile.mkdtemp(prefix="ofb_tools_", dir=root)
+    # the module entry of one tool, beside the ImageFolder's writing
+    kp = _start([sys.executable, "-m", "ofb_tpu_torch.scripts.kpad_probe"],
+                _dist_env())
+    data = os.path.join(work, "imf")
+    t = time.perf_counter()
+    make_imagefolder.main(["--root", data, "--classes",
+                           str(TOOLS_IMAGES["classes"]), "--per-class",
+                           str(TOOLS_IMAGES["per_class"]), "--val-per-class",
+                           "0"])
+    write_s = time.perf_counter() - t
+    (kp_out,) = _finish([kp], "15 python -m kpad_probe")
+    if len([ln for ln in kp_out.splitlines() if '"tf_s"' in ln]) != 5:
+        raise AssertionError(f"15 python -m kpad_probe:\n{kp_out}")
+    log(f"  python -m ofb_tpu_torch.scripts.kpad_probe: exit 0, 5 lines; "
+        f"the ImageFolder {write_s:.1f} s")
+
+    # perf_breakdown: 5 rows of (warm-up 2 + steps) calls through the
+    # DeiT-S blocks, 4 of them with a backward, all resident
+    pb, c, _ = _tool(A, "perf_breakdown", perf_breakdown.main, [
+        "--model", "deit_small", "--batch", "256", "--steps",
+        str(TOOLS_STEPS)])
+    calls = (TOOLS_STEPS + 2) * 12
+    _expect_counts(c, 5 * calls, 4 * calls, "15 perf_breakdown")
+    _add(totals, c)
+    _positive("perf_breakdown img/s", {k: float(r["img_s"])
+                                       for k, r in pb["rows"].items()})
+    _positive("perf_breakdown mfu", {k: float(r["mfu"]) for k, r in
+                                     pb["rows"].items()
+                                     if k != "augment_only"})
+    if pb["rows"]["eval_fwd"]["img_s"] <= pb["rows"]["search_step"]["img_s"]:
+        raise AssertionError(f"15 perf_breakdown: eval_fwd not faster than "
+                             f"search_step: {pb['rows']}")
+
+    ab, c, _ = _tool(A, "augment_breakdown", augment_breakdown.main, [
+        "--batch", "256", "--stage", "256", "--out-size", "224", "--iters",
+        str(TOOLS_ITERS)])
+    _expect_counts(c, 0, 0, "15 augment_breakdown")
+    _positive("augment_breakdown ms", ab["ms"])
+    if not ab["delta"]["mean"] <= ONE_UINT8_STEP:
+        raise AssertionError(f"15 augment_breakdown: bf16 geometry delta "
+                             f"{ab['delta']}")
+    log("  augment_breakdown: " + json.dumps(ab))
+
+    real = (swin_mod._window_attention, swin_mod.shifted_windows)
+    sb, c, _ = _tool(A, "swin_breakdown", swin_breakdown.main, [
+        "--model", "swin_tiny", "--batch", "128", "--steps",
+        str(TOOLS_STEPS)])
+    _expect_counts(c, 0, 0, "15 swin_breakdown")
+    _positive("swin_breakdown img/s", sb)
+    if (swin_mod._window_attention, swin_mod.shifted_windows) != real:
+        raise AssertionError("15 swin_breakdown left a stub in place")
+
+    kl, c, _ = _tool(A, "kpad_probe", kpad_probe.main, [])
+    _expect_counts(c, 0, 0, "15 kpad_probe")
+    _positive("kpad_probe TF/s", {f"{ln['shape']} {k}": float(ln[k])
+                                  for ln in kl for k in (
+                                      "tf_s", "tf_s_padded_effective")})
+
+    db, c, _ = _tool(A, "data_bench", data_bench.main, [
+        "--root", os.path.join(data, "train"), "--n", "256"])
+    _expect_counts(c, 0, 0, "15 data_bench")
+    _positive("data_bench img/s", db)
+
+    ms, c, _ = _tool(A, "minimal_search", minimal_search.main, [])
+    # fp32: 5 search steps and one finetune step through 2 blocks, general
+    _expect_counts(c, 12, 12, "15 minimal_search", body="general")
+    _add(totals, c)
+    if not math.isfinite(ms):
+        raise AssertionError(f"15 minimal_search: loss {ms}")
+
+    story, c, story_s = _tool(A, "compression_story", compression_story.main,
+                              ["--steps", str(STORY_STEPS[0]),
+                               "--finetune-steps", str(STORY_STEPS[1])])
+    _add(totals, c)
+    if not story["flops_pct"] < 100.0:
+        raise AssertionError(f"15 compression_story: {story}")
+    # the supernet's 3 blocks resident in every search step and supernet
+    # eval (every 300 steps and once after); the subnet's blocks, (heads,
+    # head dim, MLP) each, by their bodies in every finetune step and in
+    # its two evals
+    scfg = story["cfg"]
+    N = scfg.num_patches + scfg.num_tokens
+    bodies = [A.attention_body(N, d, torch.bfloat16).name
+              for _, d, _ in story["blocks"]]
+    shapes = sorted({(128, N, h, d) for h, d, _ in story["blocks"]
+                     if A.attention_body(N, d, torch.bfloat16).name
+                     == "general"})
+    steps, ft = STORY_STEPS
+    depth = compression_story.CFG["depth"]
+    n_gen, n_res = bodies.count("general"), bodies.count("resident")
+    want = {"attention_fwd": {"resident": steps * depth + (
+        steps // 300 + 1) * depth + (ft + 2) * n_res, "streaming": 0,
+        "general": (ft + 2) * n_gen},
+        "attention_bwd": {"resident": steps * depth + ft * n_res,
+                          "streaming": 0, "general": ft * n_gen}}
+    if c != want or n_gen + n_res != depth:
+        raise AssertionError(f"15 compression_story: launches {c}, expected "
+                             f"{want} (subnet bodies {bodies})")
+    log(f"  compression_story: {story_s:.1f} s; " + json.dumps(
+        {k: v for k, v in story.items() if k != "cfg"}))
+
+    (fn, args), _, _ = _tool(A, "entry() built", dryrun.entry, "cuda")
+    with torch.no_grad():
+        logits, c, _ = _tool(A, "entry() forward", fn, *args)
+    if logits.shape != (8, 1000) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"15 entry(): logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    _expect_counts(c, 12, 0, "15 entry()")
+    _add(totals, c)
+    log(f"  entry(): logits (8, 1000) finite, |max| "
+        f"{logits.abs().max().item():.4f}")
+    log("  tools launches by kernel: " + json.dumps(totals))
+    del fn, args, logits
+    shutil.rmtree(work, ignore_errors=True)
+    return totals, time_general_bf16(A, shapes) if shapes else []
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3483,6 +3692,7 @@ def main():
         dist = timed("12", run_dist, A, smi, root)
         tp = timed("13", run_tp, A, smi, root)
         ladder = timed("14", run_ladder, A, smi, root)
+        tools, story_general = timed("15", run_tools, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"seconds by phase: {json.dumps(seconds)}")
@@ -3503,12 +3713,25 @@ def main():
                       launches_planned=planned[name],
                       launches_vit=vit[name], launches_swin=swin[name],
                       launches_dist=dist[name], launches_tp=tp[name],
-                      launches_ladder=ladder[name])
+                      launches_ladder=ladder[name],
+                      launches_tools=tools[name])
         # the streaming body's times are at 577 tokens; the general body's
         # in fp32 at 197 tokens (its 577-token times stand beside them)
         timed = stream_fields[name] if name.endswith("_streaming") \
             else fp32_fields[name] if name.endswith("_general") \
             else dict(times[name])
+        if name.endswith("_general") and story_general:
+            # the general body in bf16, one entry a shape of the story's
+            # subnet that sent it there
+            n = name.split("_")[1]
+            timed["bf16_story"] = [{
+                "shape": row["shape"], "max_abs_err": row[f"{n}_max_abs_err"],
+                "ms": row[f"{n}_kernel_ms"],
+                "device_ms": row[f"{n}_kernel_device_ms"],
+                "plain_ms": row[f"{n}_plain_ms"],
+                "library_ms": row[f"{n}_sdpa_ms"],
+                "bound_ms": row[f"{n}_bound_ms"],
+                "bound_by": row[f"{n}_bound_by"]} for row in story_general]
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
             replaces=f"{ATTN_SRC}:{line}", launches=sum(phases.values()),
@@ -3520,6 +3743,7 @@ def main():
     log(json.dumps({"attention_577": stream_times}))
     log(json.dumps({"attention_vit": vit_times}))
     log(json.dumps({"attention_fp32": fp32_times}))
+    log(json.dumps({"attention_bf16_general_story": story_general}))
     log("device time: profiler sessions taken as whole {whole}, taken as "
         "agreeing {agreed}, dropped {dropped}; times from queued_time_ms "
         "{queued}".format(**SESSIONS))

@@ -349,10 +349,11 @@ def range_us(prof, name: str):
 
 def time_calls(call, steps: int, warmup: int = 3) -> float:
     """Seconds per call of `call()` (which returns a tensor to read back),
-    after `warmup` calls, ended by reading the last result."""
+    after `warmup` calls, ended by reading the last result; the warm-up is
+    drained on the result's device first."""
     for _ in range(warmup):              # first calls build kernels
         out = call()
-    torch.cuda.synchronize()
+    _sync(out.device)
     t0 = time.perf_counter()
     for _ in range(steps):
         out = call()

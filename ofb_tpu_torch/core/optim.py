@@ -25,13 +25,15 @@ gradients and a per-leaf scale of the update.
 
 Beside it: `PlateauTracker` with `with_lr_scale` / `set_lr_scale` (a
 host-set factor on every update), `make_trainable_mask` (static 0/1 update
-masks) and `zero_adam_moments` (the moment reset of a prune event).
+masks), `zero_adam_moments` (the moment reset of a prune event), `adamw`
+(optax.adamw: one family) and `sgd` (optax.sgd without momentum).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any, Callable, Collection, Dict, List, Optional, Tuple
 
 import torch
@@ -444,6 +446,34 @@ def adamw(schedule: Schedule, *, weight_decay: float,
     fam = OptimFamilyConfig(betas=betas, eps=eps, weight_decay=weight_decay)
     return SearchOptimizer({"all": Family(fam, schedule, weight_decay)},
                            None, 1, label_fn=lambda name, ndim: "all")
+
+
+@dataclass
+class SGDState:
+    count: Any            # updates done: a 0-d int64 tensor (an int is taken)
+
+
+def sgd(learning_rate):
+    """optax.sgd without momentum: u = -lr(t) * g, with t the update count
+    before this one; a float `learning_rate` is a constant schedule.
+    Returns the `init` / `update` interface of `SearchOptimizer`."""
+
+    def init(leaves: Dict[str, torch.Tensor]) -> SGDState:
+        dev = next(iter(leaves.values())).device
+        return SGDState(torch.zeros((), dtype=torch.int64, device=dev))
+
+    def update(grads: Dict[str, torch.Tensor], state: SGDState,
+               params: Dict[str, torch.Tensor], sharded: Collection[str] = ()):
+        lr = learning_rate
+        if callable(lr):
+            lr = torch.as_tensor(lr(state.count), dtype=torch.float32,
+                                 device=state.count.device)
+        names = list(grads)
+        u = torch._foreach_mul([grads[n] for n in names], -lr)
+        state.count.add_(1)
+        return dict(zip(names, u)), state
+
+    return SimpleNamespace(init=init, update=update)
 
 
 def build_search_optimizer(

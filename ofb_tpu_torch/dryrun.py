@@ -1,5 +1,6 @@
 """Multi-device dry run of the tensor-parallel search step: the counterpart of
-the JAX package's `__graft_entry__.dryrun_multichip`.
+the JAX package's `__graft_entry__.dryrun_multichip`; and `entry()`, the
+counterpart of its `entry` (the flagship's forward and example inputs).
 
     python -m ofb_tpu_torch.dryrun --devices N [--tiny] [--device cpu|cuda]
     torchrun --nproc_per_node N -m ofb_tpu_torch.dryrun [--tiny]
@@ -62,6 +63,28 @@ def flagship(tiny: bool, device):
                               cfg.hidden, cfg.num_patches, patch_search=True)
     return ModelBundle(name="tiny", cfg=cfg, space=space,
                        device=torch.device(device), kind="mim")
+
+
+def entry(device="cuda"):
+    """The flagship's forward as `(fn, (params, alphas, arch, x))`: the port
+    of `__graft_entry__.entry`. `fn(params, alphas, arch, x)` is the DeiT-S
+    supernet's eval forward without MIM (bf16 compute) and returns the
+    (8, 1000) fp32 logits; the weights come from seed 0 and `x` is zeros
+    (8, 224, 224, 3), all on `device` (the card unless "cpu" is asked
+    for)."""
+    from .device import resolve_device
+    from .models.mim_vit import mim_forward
+    dev = resolve_device(device)
+    bundle = flagship(False, dev)
+    params, alphas, arch = bundle.init(0)
+    S = bundle.cfg.img_size
+    x = torch.zeros((8, S, S, 3), dtype=torch.float32, device=dev)
+
+    def fwd(params, alphas, arch, x):
+        return mim_forward(params, alphas, arch, x, bundle.cfg, bundle.space,
+                           train=False, use_mim=False).logits
+
+    return fwd, (params, alphas, arch, x)
 
 
 def mesh_shape(n: int):

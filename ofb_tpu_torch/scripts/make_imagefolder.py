@@ -48,7 +48,7 @@ def class_image(rs: np.random.RandomState, cls: int, n_classes: int,
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--classes", type=int, default=40)
@@ -60,7 +60,7 @@ def main():
     ap.add_argument("--noise", type=float, default=0.08,
                     help="pattern noise std (0-1 scale); higher = harder")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     from PIL import Image
 

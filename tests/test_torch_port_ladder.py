@@ -279,7 +279,10 @@ def test_no_jax_imports_under_scripts():
     pat = re.compile(r"^\s*(?:import|from)\s+(jax\b|ofb_tpu\b(?!_)|scripts\b)"
                      r"|^\s*from\s+ofb_tpu\.", re.M)
     files = sorted(glob.glob(os.path.join(SCRIPTS, "*.py")))
-    assert len(files) == 11
+    examples = sorted(glob.glob(os.path.join(SCRIPTS, "..", "examples",
+                                             "*.py")))
+    assert len(files) == 16 and len(examples) == 3
+    files += examples
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
