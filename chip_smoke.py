@@ -160,20 +160,28 @@ which raises (and so exits non-zero) on failure:
      process's over the whole set; each
      rank's 24 + 24 step and 12 eval launches, resident. A process that
      fails or outlasts DIST_TIMEOUT fails the phase;
- 13. tensor parallelism and remat (`--tp-step RANK WORLD RDZV OUT` runs a
-     rank): (a) two and (b) four ranks sharing the card over gloo (a
-     correctness run), each a (1, tp) mesh with DeiT-S (bf16, global batch
-     TP_BATCH) sharded on its model axis (heads 3 + 3; 2 + 2 + 1 + 1): a
-     search step, block 0's MLP alpha cell at -8 and a compress pass, a
-     post-prune step, a forced convergence and the export; against the
-     same sequence in one process on the card: the loss within
-     TOL_TP_LOSS and the gradient norm within TOL_TP_GRAD_NORM, the
-     updates of every qkv, proj, fc1 and fc2 weight and bias and of the
-     alphas of the same sign but for TOL_TP_FLIPS of their elements and
-     their difference within TOL_TP_REL, the same compress events and
-     export widths, and the rank's export within TOL_TP_EXPORT of one
-     process's; each rank's peak memory beside one process's; 24 + 24
-     resident launches a rank. Meanwhile the resident
+ 13. tensor parallelism, resume and remat (`--tp-step RANK WORLD RDZV OUT
+     [FROM]` runs a rank): (a) two and (b) four ranks sharing the card
+     over gloo (a correctness run), each a (1, tp) mesh with DeiT-S (bf16,
+     global batch TP_BATCH) sharded on its model axis (heads 3 + 3; 2 + 2
+     + 1 + 1): a search step, block 0's MLP alpha cell at -8 and a
+     compress pass, the state saved (every rank; rank 0 writes the
+     gathered tensors, the PMIM generator's state in the meta), a
+     post-prune step, the same step resumed from that file in a fresh
+     supernet sharded on the same mesh (its metrics and watched leaves
+     bit-equal to the uninterrupted step's), a forced convergence and the
+     export; against the same sequence in one process on the card: the
+     loss within TOL_TP_LOSS and the gradient norm within
+     TOL_TP_GRAD_NORM, the updates of every qkv, proj, fc1 and fc2 weight
+     and bias and of the alphas of the same sign but for TOL_TP_FLIPS of
+     their elements and their difference within TOL_TP_REL, the same
+     compress events and export widths, and the rank's export within
+     TOL_TP_EXPORT of one process's; each rank's peak memory beside one
+     process's. Across meshes, (a)'s checkpoint resumed by (b)'s ranks and
+     by the one process: each post-prune step within the same TOL_TP_*
+     of that mesh's own. Resident launches a rank 36 + 36 on (a), 48 + 48
+     on (b), and 12 + 12 of the one process's resumed step. Meanwhile the
+     resident
      pair against its twin at a rank's head counts (3, 2, 1 at N 197, d
      64) and (d) `python -m ofb_tpu_torch.dryrun --devices 4 --tiny
      --device cuda` exits 0. (c) the search step with `remat` against the
@@ -229,7 +237,8 @@ The line before the last is the kernels' JSON (`launches` sums the twelve
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
 `launches_cli`, `launches_384`, `launches_planned`, `launches_vit`,
 `launches_swin` (0), `launches_dist` (phase 12's processes),
-`launches_tp` (phase 13's (a) to (c)), `launches_ladder` (phase 14's
+`launches_tp` (phase 13's (a) to (c) with the resumed steps),
+`launches_ladder` (phase 14's
 processes) and `launches_tools` (phase 15) give each;
 the general body's times are fp32's, with a `bf16_story` list, one entry
 a shape at which phase 15 checked and timed it in bf16); the
@@ -2844,6 +2853,7 @@ TP_SEED = 13               # weights and images of 13 (a) and (b)
 TP_GEN = 22                # the generator of their PMIM masks
 TP_MESHES = (2, 4)         # model axes of 13 (a) and (b): heads 3 + 3,
                            # and 2 + 2 + 1 + 1
+TP_RESUME_WAIT = 300       # seconds a rank of 13 (b) waits for (a)'s file
 # the resident pair at a rank's share of DeiT-S's six heads
 TP_HEADS = [(TP_BATCH, 197, 3, 64), (TP_BATCH, 197, 2, 64),
             (TP_BATCH, 197, 1, 64)]
@@ -2873,32 +2883,30 @@ REMAT_MODELS = ("deit_small", "deit_base")
 REMAT_CALLS = 2            # timed steps a turn (after one untimed)
 
 
-def tp_sequence(mesh, save=None):
-    """13 (a) / (b) in one rank (`mesh` a (1, tp) mesh) or in one process
-    (mesh None): DeiT-S bf16 from TP_SEED, sharded on the mesh's model
-    axis; a search step on the global batch of TP_BATCH, block 0's MLP
-    alpha cell 0 at -8 and a compress pass, a post-prune step, then a
-    forced convergence and the export (gathered first on a mesh). `save`
-    (rank 0's directory) receives the gathered watched leaves (TP_WATCHED,
-    the alphas) after each step and the export. Returns the JSON-able
-    summary (`peak_mib`: the steps' peak over what the process held before
-    the model was built); without a mesh also the watched leaves, at the
-    start too, and the export."""
+def _tp_watched(state, layout):
+    """The gathered watched leaves (TP_WATCHED, the alphas) of a state,
+    on the host."""
+    from ofb_tpu_torch.core.optim import named_leaves
+    from ofb_tpu_torch.parallel.mesh import gather_named
+    live = {n: p.detach() for n, p in
+            named_leaves(state.params, state.alphas).items()
+            if n.startswith("alphas.") or n.endswith(TP_WATCHED)}
+    return {n: t.to("cpu", copy=True)
+            for n, t in gather_named(live, layout).items()}
+
+
+def _tp_build(mesh, seed):
+    """(bundle, search config, state, step) of 13's DeiT-S supernet from
+    `seed`, sharded on `mesh`'s model axis (whole without a mesh)."""
     import torch
     from ofb_tpu_torch import bench as B
-    from ofb_tpu_torch.core.compress import compress
-    from ofb_tpu_torch.core.export import export_subnet
     from ofb_tpu_torch.core.optim import named_leaves
     from ofb_tpu_torch.core.steps import TrainState, make_search_step
     from ofb_tpu_torch.models.registry import create_model
-    from ofb_tpu_torch.ops import attention as A
-    from ofb_tpu_torch.parallel.mesh import gather_named, shard_params, tp_of
-
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    from ofb_tpu_torch.parallel.mesh import shard_params
     bundle = create_model("deit_small_patch16_224_mim", device="cuda",
                           patch_search=True)
-    params, alphas, arch = bundle.init(TP_SEED)
+    params, alphas, arch = bundle.init(seed)
     if mesh is not None:
         shard_params(params, mesh)
     scfg, tx = B.search_config(TP_BATCH)
@@ -2906,17 +2914,74 @@ def tp_sequence(mesh, save=None):
                        opt_state=tx.init(named_leaves(params, alphas)))
     step = make_search_step(bundle.space, bundle.cfg, scfg, tx,
                             compute_dtype=torch.bfloat16, device="cuda")
+    return bundle, scfg, state, step
+
+
+def tp_resume(path, mesh, images, labels):
+    """The post-prune step resumed from the checkpoint at `path`: a fresh
+    DeiT-S supernet (other weights) sharded on `mesh` (whole without
+    one), the checkpoint restored into it (params, alphas, arch, Adam's
+    state) and the PMIM generator set to the state its meta holds, then
+    the step. Returns (metrics, the watched leaves after it, seconds of the
+    restore, ms of the step, its attention launches)."""
+    import torch
+    from ofb_tpu_torch.core.checkpoint import load_checkpoint
+    from ofb_tpu_torch.ops import attention as A
+    from ofb_tpu_torch.parallel.mesh import tp_of
+    _, _, state, step = _tp_build(mesh, TP_SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = load_checkpoint(path, params=state.params, alphas=state.alphas,
+                           arch=state.arch,
+                           opt_state=state.opt_state)["meta"]
+    state.step.fill_(meta["step"])
+    g = torch.Generator(device="cuda")
+    g.set_state(torch.tensor(meta["generator"], dtype=torch.uint8))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    before = kernel_counts(by_body(A))
+    t0 = time.perf_counter()
+    _, m = step(state, images, labels, g, 0.75)
+    m = _finite(m, "13 resumed step")
+    ms = (time.perf_counter() - t0) * 1e3
+    after = kernel_counts(by_body(A))
+    counts = {k: after[k] - before[k] for k in after}
+    return m, _tp_watched(state, tp_of(state.params)), restore_s, ms, counts
+
+
+def tp_sequence(mesh, out=None, cross=None):
+    """13 (a) / (b) in one rank (`mesh` a (1, tp) mesh) or in one process
+    (mesh None): DeiT-S bf16 from TP_SEED, sharded on the mesh's model
+    axis; a search step on the global batch of TP_BATCH, block 0's MLP
+    alpha cell 0 at -8 and a compress pass, then on a mesh the state
+    saved to `out`/resume (every rank calls it, rank 0 writes; the PMIM
+    generator's state in its meta), a post-prune step, on a mesh the same
+    step resumed from that file (`tp_resume`), then a forced convergence
+    and the export (gathered first on a mesh). With `cross` the post-prune
+    step resumed from that checkpoint of another mesh too, once its
+    meta.json is there. Rank 0 (and one process) writes the watched leaves
+    (TP_WATCHED, the alphas) after each step, the resumed ones and the
+    export to `out`/tp.pt. Returns the JSON-able summary (`peak_mib`: the
+    uninterrupted steps' peak over what the process held before the model
+    was built; `counts`: every attention launch of the sequence); without
+    a mesh also the watched leaves, at the start too, and the export."""
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.core.checkpoint import commit_saves, save_checkpoint
+    from ofb_tpu_torch.core.compress import compress
+    from ofb_tpu_torch.core.export import export_subnet
+    from ofb_tpu_torch.ops import attention as A
+    from ofb_tpu_torch.parallel.distributed import rank_world
+    from ofb_tpu_torch.parallel.mesh import tp_of
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    bundle, scfg, state, step = _tp_build(mesh, TP_SEED)
+    alphas = state.alphas
     images, labels = B.random_batch(bundle.cfg, TP_BATCH, "cuda", TP_SEED)
     g = torch.Generator(device="cuda").manual_seed(TP_GEN)
-    layout = tp_of(params)
-    metrics, times, snaps = [], [], {}
-
-    def watched(tag):
-        live = {n: p.detach() for n, p in
-                named_leaves(state.params, state.alphas).items()
-                if n.startswith("alphas.") or n.endswith(TP_WATCHED)}
-        snaps[tag] = {n: t.to("cpu", copy=True) for n, t in
-                      gather_named(live, layout).items()}
+    layout = tp_of(state.params)
+    metrics, times, snaps, res = [], [], {}, {}
 
     def one_step():
         torch.cuda.synchronize()
@@ -2925,23 +2990,48 @@ def tp_sequence(mesh, save=None):
         metrics.append(_finite(m, "13 tensor-parallel step"))
         times.append((time.perf_counter() - t0) * 1e3)
 
+    def resumed(tag, path):
+        m, snaps[tag], restore_s, ms, counts = tp_resume(path, mesh, images,
+                                                         labels)
+        res[tag] = {"metrics": m, "restore_s": restore_s, "step_ms": ms,
+                    "counts": counts}
+
     if mesh is None:
-        watched("init")
+        snaps["init"] = _tp_watched(state, layout)
     A.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     one_step()
-    watched("step1")
+    snaps["step1"] = _tp_watched(state, layout)
     with torch.no_grad():
         alphas.blocks[0].mlp[..., 0] = -8.0
     report = compress(state.params, alphas, state.arch, state.opt_state,
                       bundle.space, scfg.compress_thresh)[4]
     if not report.execute_prune:
         raise AssertionError("13: the forced compress event did not fire")
+    if mesh is not None:
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(out, "resume"), params=state.params,
+                        alphas=alphas, arch=state.arch,
+                        opt_state=state.opt_state,
+                        meta={"step": int(state.step),
+                              "generator": g.get_state().tolist()})
+        commit_saves("13 resume point")
+        res["save_s"] = time.perf_counter() - t0
     one_step()
-    watched("step2")
+    snaps["step2"] = _tp_watched(state, layout)
     torch.cuda.synchronize()
     peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    if mesh is not None:
+        resumed("resumed", os.path.join(out, "resume"))
+    if cross is not None:
+        deadline = time.perf_counter() + TP_RESUME_WAIT
+        while not os.path.exists(os.path.join(cross, "meta.json")):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"13: no checkpoint at {cross} after "
+                                     f"{TP_RESUME_WAIT} s")
+            time.sleep(0.5)
+        resumed("cross", cross)
     counts = by_body(A)
     conv = B.force_convergence(state, bundle.space)[0]
     if not conv.finish_search:
@@ -2949,20 +3039,22 @@ def tp_sequence(mesh, save=None):
     dense, dcfg, _ = export_subnet(state.params, state.arch, bundle.space,
                                    bundle.cfg)
     export = {n: p.detach().cpu() for n, p in dense.named_parameters()}
-    if save is not None:
+    if out is not None and rank_world()[0] == 0:
         torch.save({"snaps": snaps, "export": export},
-                   os.path.join(save, "tp.pt"))
-    res = {"metrics": metrics, "step_ms": times, "peak_mib": peak,
-           "counts": counts, "events": report.events,
-           "block_dims": [list(b) for b in dcfg.block_overrides]}
+                   os.path.join(out, "tp.pt"))
+    res.update(metrics=metrics, step_ms=times, peak_mib=peak, counts=counts,
+               events=report.events,
+               block_dims=[list(b) for b in dcfg.block_overrides])
     if mesh is None:
         res.update(snaps=snaps, export=export)
     return res
 
 
-def tp_worker(rank, world, rdzv, out):
+def tp_worker(rank, world, rdzv, out, cross=None):
     """13 (a) / (b), one of `world` ranks sharing the card over gloo on a
-    (1, world) mesh: `tp_sequence`. Prints `TP_STEP {json}`."""
+    (1, world) mesh: `tp_sequence` (with `cross`, also the post-prune step
+    resumed from that checkpoint of another mesh). Prints `TP_STEP
+    {json}`."""
     _worker_setup()
     import torch.distributed as dist
     from ofb_tpu_torch.parallel import distributed as D
@@ -2971,11 +3063,37 @@ def tp_worker(rank, world, rdzv, out):
             rank, world):
         raise AssertionError(f"13: not a world of {world}")
     mesh = make_mesh((1, world))
-    res = tp_sequence(mesh, save=out if rank == 0 else None)
+    res = tp_sequence(mesh, out, cross)
     D.barrier_sync("13 done")
     dist.destroy_process_group()
     res.update(rank=rank, world=world)
     print("TP_STEP " + json.dumps(res), flush=True)
+
+
+def _tp_resumed_close(what, got_m, want_m, got, want, init):
+    """A post-prune step resumed from another mesh's checkpoint against the
+    uninterrupted one of `what`: the loss and the grad norm within
+    TOL_TP_LOSS / TOL_TP_GRAD_NORM of it, the watched leaves' updates since
+    `init` within TOL_TP_FLIPS / TOL_TP_REL (as 13 (a) / (b) hold a mesh
+    against one process); returns the summary."""
+    loss, gnorm = (abs(got_m[k] - want_m[k]) / abs(want_m[k])
+                   for k in ("loss_total", "grad_norm"))
+    flips, rels = (0.0, "none"), (0.0, "none")
+    for n, w in want.items():
+        f, r = _flip_share(*(_update_view(n, t) for t in (got[n], w,
+                                                          init[n])))
+        flips, rels = max(flips, (f, n)), max(rels, (r, n))
+    if loss > TOL_TP_LOSS or gnorm > TOL_TP_GRAD_NORM \
+            or flips[0] > TOL_TP_FLIPS or rels[0] > TOL_TP_REL:
+        raise AssertionError(
+            f"13 resume across meshes, {what}: loss rel {loss:.3e} (tol "
+            f"{TOL_TP_LOSS:g}), grad norm rel {gnorm:.3e} (tol "
+            f"{TOL_TP_GRAD_NORM:g}), update signs flipped at {flips[0]:.4f} "
+            f"of {flips[1]} (tol {TOL_TP_FLIPS:g}), update difference rel "
+            f"{rels[0]:.3e} at {rels[1]} (tol {TOL_TP_REL:g})")
+    return (f"{what}: loss rel {loss:.3e}, grad norm rel {gnorm:.3e}, "
+            f"update signs flipped at most {flips[0]:.4f} ({flips[1]}), "
+            f"update difference rel at most {rels[0]:.3e} ({rels[1]})")
 
 
 def _update_view(name, t):
@@ -3060,10 +3178,11 @@ def run_tp(A, card, root):
     """Phase 13: (a) the tensor-parallel search step on a (1, 2) mesh and
     (b) on a (1, 4) mesh, ranks sharing the card over gloo (correctness
     runs, not speed figures: gloo stages card tensors through the host),
-    against one process's sequence on the card; the resident pair at a
+    against one process's sequence on the card, each resuming its own
+    checkpoint, (b) and one process also (a)'s; the resident pair at a
     rank's head counts against its twin; (c) remat against the plain step;
     (d) `python -m ofb_tpu_torch.dryrun --devices 4 --tiny` on the card.
-    Returns the launches of (a) to (c)."""
+    Returns the launches of (a) to (c) and of the resumed steps."""
     import numpy as np
     import torch
 
@@ -3074,8 +3193,12 @@ def run_tp(A, card, root):
     dirs, procs = {}, []
     for tp in TP_MESHES:
         dirs[tp] = tempfile.mkdtemp(prefix=f"ofb_tp{tp}_", dir=root)
+    # (b)'s ranks and the one process also resume (a)'s checkpoint
+    cross = os.path.join(dirs[TP_MESHES[0]], "resume")
+    for tp in TP_MESHES:
         procs += [_start([sys.executable, me, "--tp-step", str(r), str(tp),
-                          os.path.join(dirs[tp], "rdzv"), dirs[tp]],
+                          os.path.join(dirs[tp], "rdzv"), dirs[tp]]
+                         + ([cross] if tp != TP_MESHES[0] else []),
                          _dist_env(r, tp)) for r in range(tp)]
     dry = _start([sys.executable, "-m", "ofb_tpu_torch.dryrun", "--devices",
                   "4", "--tiny", "--device", "cuda"], _dist_env())
@@ -3097,22 +3220,46 @@ def run_tp(A, card, root):
     log(f"tp (d) python -m ofb_tpu_torch.dryrun --devices 4 --tiny --device "
         f"cuda: {done[0]}")
 
-    # the same sequence in one process on the card
+    # the same sequence in one process on the card, then (a)'s checkpoint
+    # resumed in it: only that step's launches count
     A.reset_launch_counts()
-    one = tp_sequence(None)
+    one = tp_sequence(None, cross=cross)
     A.reset_launch_counts()
+    step12 = kernel_counts(only("resident", 12, 12))
+    if one["cross"]["counts"] != step12:
+        raise AssertionError(f"13: one process's resumed step launched "
+                             f"{one['cross']['counts']}")
+    for k, n in one["cross"]["counts"].items():
+        totals[k] += n
     want = one["snaps"]
     init = want["init"]
+    crossed = [_tp_resumed_close("one process", one["cross"]["metrics"],
+                                 one["metrics"][1], want["cross"],
+                                 want["step2"], init)]
     for tp, rs in sorted(ranks.items()):
         rs.sort(key=lambda r: r["rank"])
+        # two steps and the resumed one, and on (b) (a)'s checkpoint resumed
+        resumes = ("resumed", "cross") if tp != TP_MESHES[0] \
+            else ("resumed",)
         for r in rs:
             if r["metrics"] != rs[0]["metrics"] \
                     or r["events"] != rs[0]["events"]:
                 raise AssertionError(f"13 tp {tp}: rank {r['rank']} differs "
                                      f"from rank 0")
-            if r["counts"] != only("resident", 24, 24):
+            n_steps = 2 + len(resumes)
+            if r["counts"] != only("resident", 12 * n_steps, 12 * n_steps) \
+                    or any(r[k]["counts"] != step12 for k in resumes):
                 raise AssertionError(f"13 tp {tp} rank {r['rank']}: launches "
-                                     f"{r['counts']}")
+                                     f"{r['counts']}, resumed "
+                                     f"{[r[k]['counts'] for k in resumes]}")
+            # the resumed step on the same mesh is the uninterrupted one,
+            # bit for bit (every kernel of the step is deterministic: the
+            # resident backward sums without atomics)
+            if r["resumed"]["metrics"] != r["metrics"][1]:
+                raise AssertionError(
+                    f"13 tp {tp} rank {r['rank']}: the resumed step's metrics "
+                    f"{r['resumed']['metrics']} are not the uninterrupted "
+                    f"step's {r['metrics'][1]}")
             for k, n in kernel_counts(r["counts"]).items():
                 totals[k] += n
         if rs[0]["events"] != one["events"] \
@@ -3130,6 +3277,17 @@ def run_tp(A, card, root):
         saved = torch.load(os.path.join(dirs[tp], "tp.pt"))
         if set(saved["snaps"]["step1"]) != set(want["step1"]):
             raise AssertionError(f"13 tp {tp}: watched leaves differ")
+        for n, w in saved["snaps"]["step2"].items():
+            if not torch.equal(saved["snaps"]["resumed"][n], w):
+                d = (saved["snaps"]["resumed"][n] - w).abs().max().item()
+                raise AssertionError(f"13 tp {tp}: the resumed step's {n} "
+                                     f"differs from the uninterrupted step's "
+                                     f"by {d:.3e}")
+        if "cross" in resumes:
+            crossed.append(_tp_resumed_close(
+                f"mesh (1, {tp})", rs[0]["cross"]["metrics"],
+                rs[0]["metrics"][1], saved["snaps"]["cross"],
+                saved["snaps"]["step2"], init))
         flips, rels = (0.0, "none"), (0.0, "none")
         for tag in ("step1", "step2"):
             for n, w in want[tag].items():
@@ -3180,7 +3338,26 @@ def run_tp(A, card, root):
             f"{[[round(t, 1) for t in r['step_ms']] for r in rs]}, one "
             f"process {[round(t, 1) for t in one['step_ms']]}; launches a "
             f"rank {rs[0]['counts']}")
+        log(f"tp ({'a' if tp == 2 else 'b'}) resume on {card}: the state "
+            f"after the forced compress saved by every rank (gathered, rank 0 "
+            f"writes; {rs[0]['save_s']:.3f} s with the fence), restored into "
+            f"a fresh DeiT-S supernet sharded on the same mesh: the "
+            f"post-prune step's metrics and watched leaves bit-equal to the "
+            f"uninterrupted step's on every rank; restore s by rank "
+            f"{[round(r['resumed']['restore_s'], 3) for r in rs]}; post-prune "
+            f"step ms by rank uninterrupted "
+            f"{[round(r['step_ms'][1], 1) for r in rs]}, resumed "
+            f"{[round(r['resumed']['step_ms'], 1) for r in rs]}"
+            + (f"; (a)'s checkpoint restored here: restore s by rank "
+               f"{[round(r['cross']['restore_s'], 3) for r in rs]}, step ms "
+               f"{[round(r['cross']['step_ms'], 1) for r in rs]}"
+               if "cross" in resumes else ""))
         del saved
+    log(f"tp resume across meshes on {card}: (a)'s checkpoint (mesh (1, 2)) "
+        f"restored into one process (restore {one['cross']['restore_s']:.3f}"
+        f" s, step {one['cross']['step_ms']:.1f} ms) and into (b)'s ranks; "
+        f"each post-prune step against that mesh's own: " + "; ".join(
+            crossed))
     log(f"tp (a), (b), (d) processes: {workers_s:.1f} s")
     for k, n in run_remat(A, card).items():
         totals[k] += n
@@ -3765,6 +3942,6 @@ if __name__ == "__main__":
         dist_pair_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     elif sys.argv[1:2] == ["--tp-step"]:
         tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-                  sys.argv[5])
+                  sys.argv[5], *sys.argv[6:7])
     else:
         sys.exit(main())

@@ -31,6 +31,16 @@ async_write: only serialisation and file I/O run on the writer thread.
 A tensor-parallel supernet's shards (and their EMA and Adam moments) are
 gathered into the full tensors first, so its checkpoint is the
 one-process format.
+
+`load_checkpoint` restores into a tensor-parallel supernet too: it cuts
+each saved full tensor of the sharded parts (params, the Adam moments, EMA)
+down to this rank's shard of the live layout (`parallel/mesh.py:
+shard_tensor`), the port's files and the JAX package's alike, so a
+checkpoint saved at any mesh or by one process resumes on any model axis
+the config splits over. This stands in for what the JAX package's orbax
+backend gives it: "sharded templates restore to their shardings"
+(`load_checkpoint_orbax`). Every rank reads the file that rank 0 wrote,
+after `commit_saves` fenced them.
 """
 
 from __future__ import annotations
@@ -39,19 +49,23 @@ import dataclasses
 import json
 import os
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..models.search_space import ArchState
 from ..parallel.distributed import barrier_sync
-from ..parallel.mesh import gather_named, tp_of
+from ..parallel.mesh import (TPLayout, full_shape, gather_named, shard_kind,
+                             shard_tensor, tp_of)
 from ..utils.logging import is_main_process
 from .msgpack import read_tree
 from .optim import LrScaleState, set_count
 
 FORMAT_VERSION = 1
 PARTS = ("params", "alphas", "arch", "opt_state", "ema")
+# the parts a tensor-parallel supernet holds as shards (alphas and the arch
+# state are replicated)
+SHARDED_PARTS = ("params", "opt_state", "ema")
 
 _PENDING: Dict[str, threading.Thread] = {}
 _PENDING_LOCK = threading.Lock()
@@ -108,29 +122,70 @@ def _snapshot(tensors: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {n: t.detach().to("cpu", copy=True) for n, t in tensors.items()}
 
 
-def _restore(name: str, obj, saved: Dict[str, torch.Tensor], path: str):
-    """Copy a saved part into the live object, in place; raises when the
-    names or shapes differ."""
-    if isinstance(obj, torch.nn.Module):
-        obj.load_state_dict(saved, strict=True)
-        return
+def _cut(name: str, saved: Dict[str, torch.Tensor],
+         live: Dict[str, torch.Tensor], layout: TPLayout,
+         path: str) -> Dict[str, torch.Tensor]:
+    """`saved` with each sharded leaf's full tensor cut down to this rank's
+    shard of `layout`; raises ValueError, naming the leaf, when a saved
+    full tensor is not the full shape of its live shard (another width or
+    head count)."""
+    out = dict(saved)
+    for n, t in saved.items():
+        if shard_kind(n) is None:
+            continue
+        want = full_shape(n, live[n].shape, layout)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{path}: {name}.{n} saved {tuple(t.shape)}, "
+                             f"live a shard {tuple(live[n].shape)} of "
+                             f"{want}")
+        out[n] = shard_tensor(n, t, layout)
+    return out
+
+
+def _checked(name: str, obj, saved: Dict[str, torch.Tensor], path: str,
+             layout: Optional[TPLayout] = None) -> Callable[[], None]:
+    """Check a saved part (a flat {name: tensor} dict, full tensors) against
+    the live object and return the function that copies it in, in place,
+    on the live tensors' devices; with `layout` (a sharded supernet's) the
+    sharded parts' leaves are first cut to this rank's shards. Raises
+    KeyError when the names differ (or one optimizer state has a plateau
+    scale and the other not) and ValueError, naming the leaf, when a shape
+    does."""
+    if name == "opt_state" and \
+            ("scale" in saved) != isinstance(obj, LrScaleState):
+        raise KeyError(f"{path}: the saved optimizer state and the live one "
+                       "differ: one has a plateau scale (with_lr_scale), the "
+                       "other not")
     live = _live(name, obj)
     if set(live) != set(saved):
         raise KeyError(f"{path}: part {name!r} differs from the model: only "
                        f"saved {sorted(set(saved) - set(live))[:6]}, only "
                        f"live {sorted(set(live) - set(saved))[:6]}")
-    with torch.no_grad():
-        for n, t in live.items():
-            if n == "count":
-                continue
-            if t.shape != saved[n].shape:
-                raise ValueError(f"{path}: {name}.{n} saved "
-                                 f"{tuple(saved[n].shape)}, live "
-                                 f"{tuple(t.shape)}")
-            t.copy_(saved[n])
-    if name == "opt_state":
-        adam = obj.inner if isinstance(obj, LrScaleState) else obj
-        set_count(adam, int(saved["count"]))
+    if layout is not None and name in SHARDED_PARTS:
+        saved = _cut(name, saved, live, layout, path)
+    for n, t in live.items():
+        if n != "count" and t.shape != saved[n].shape:
+            raise ValueError(f"{path}: {name}.{n} saved "
+                             f"{tuple(saved[n].shape)}, live "
+                             f"{tuple(t.shape)}")
+
+    def copy():
+        with torch.no_grad():
+            for n, t in live.items():
+                if n != "count":
+                    t.copy_(saved[n])
+        if name == "opt_state":
+            adam = obj.inner if isinstance(obj, LrScaleState) else obj
+            set_count(adam, int(saved["count"]))
+
+    return copy
+
+
+def restore_part(name: str, obj, saved: Dict[str, torch.Tensor], path: str,
+                 layout: Optional[TPLayout] = None) -> None:
+    """Copy a saved part into the live object, in place, once `_checked`
+    has passed it."""
+    _checked(name, obj, saved, path, layout)()
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +219,7 @@ def save_checkpoint(path: str, *, params, alphas=None, arch=None,
         return
     objs = dict(zip(PARTS, (params, alphas, arch, opt_state, ema_params)))
     parts = {name: _snapshot(gather_named(_live(name, obj), layout)
-                             if name in ("params", "opt_state", "ema")
-                             else _live(name, obj))
+                             if name in SHARDED_PARTS else _live(name, obj))
              for name, obj in objs.items() if obj is not None}
     if not is_main_process():
         return
@@ -238,17 +292,23 @@ def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
     Returns {"meta": meta, <part>: the object restored into, ...}; a part
     the checkpoint lacks, or no object was handed for, is left out. A
     directory the JAX package wrote is read with `core/msgpack.py` and
-    carried over by `_restore_jax`; its orbax backend raises
-    NotImplementedError.
+    carried over by `_from_jax`; its orbax backend raises
+    NotImplementedError. Into a tensor-parallel `params` (`tp_of`) the
+    params, the moments and EMA are restored as this rank's shards of the
+    saved full tensors.
 
     Raises FileNotFoundError without a meta.json (a directory whose writer
-    never finished) or with a listed part missing that was asked for."""
+    never finished) or with a listed part missing that was asked for, and
+    KeyError or ValueError when a part does not fit its live object; every
+    part is checked before any is restored, so then nothing is."""
     meta = _read_meta(path)
     jax = is_jax_checkpoint(path, meta)
     if jax:
         _refuse_orbax(path, meta)
     objs = dict(zip(PARTS, (params, alphas, arch, opt_state, ema_params)))
+    layout = tp_of(params)
     out: Dict[str, Any] = {"meta": meta}
+    copies = []
     for name in meta.get("parts", []):
         obj = objs.get(name)
         if obj is None:
@@ -258,12 +318,14 @@ def load_checkpoint(path: str, *, params=None, alphas=None, arch=None,
             raise FileNotFoundError(f"part {name!r} listed in "
                                     f"{path}/meta.json but {fpath} is "
                                     "missing")
-        if jax:
-            _restore_jax(name, obj, read_tree(fpath), path)
-        else:
-            saved = torch.load(fpath, map_location="cpu", weights_only=True)
-            _restore(name, obj, saved, path)
+        saved = _from_jax(name, read_tree(fpath)) if jax else torch.load(
+            fpath, map_location="cpu", weights_only=True)
+        copies.append(_checked(name, obj, saved, path, layout))
         out[name] = obj
+    # every part checked before any is copied: a checkpoint of another
+    # width or head count changes nothing
+    for copy in copies:
+        copy()
     return out
 
 
@@ -297,22 +359,19 @@ def load_checkpoint_raw(path: str) -> Dict[str, Any]:
     return out
 
 
-def _restore_jax(name: str, obj, tree, path: str) -> None:
-    """Copy one part of a JAX checkpoint (its decoded tree) into the live
-    object, in place: a module through `load_from_jax`, an EMA dict by
-    name, the ArchState's tensors through `arch_from_jax`, the moments,
-    count and plateau scale through `load_moments_from_jax`."""
+def _from_jax(name: str, tree) -> Dict[str, torch.Tensor]:
+    """One part of a JAX checkpoint (its decoded tree) as the port's flat
+    part of full tensors, which `_checked` then cuts and copies like
+    the port's own: params and EMA in the port's names and layouts
+    (`flatten_from_jax`), the ArchState's tensors (`arch_from_jax`), the
+    count, plateau scale and moments (`opt_tensors_from_jax`)."""
     from ..models.from_jax import (arch_from_jax, flatten_from_jax,
-                                   load_from_jax, load_moments_from_jax)
+                                   opt_tensors_from_jax)
     if name == "arch":
-        _restore(name, obj, _arch_tensors(arch_from_jax(tree)), path)
-    elif name == "opt_state":
-        load_moments_from_jax(obj, tree)
-    elif isinstance(obj, torch.nn.Module):
-        load_from_jax(obj, tree)
-    else:                                   # an EMA {name: tensor} dict
-        _restore(name, obj, {n: torch.from_numpy(a) for n, a in
-                             flatten_from_jax(tree).items()}, path)
+        return _arch_tensors(arch_from_jax(tree))
+    if name == "opt_state":
+        return opt_tensors_from_jax(tree)
+    return {n: torch.from_numpy(a) for n, a in flatten_from_jax(tree).items()}
 
 
 def model_cfg_from_meta(cfg_dict: Dict[str, Any], cfg_cls):

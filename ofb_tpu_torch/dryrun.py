@@ -28,7 +28,9 @@ process a rank, over NCCL (gloo with --device cpu). Without one it starts
 N processes itself that meet over gloo through a file rendezvous, as the
 JAX function re-executes itself onto an N-device CPU platform: they share
 the one card, or run on the CPU with --device cpu. Their output is passed
-on in rank order and the exit status is non-zero when any rank failed.
+on in rank order and the exit status is non-zero when any rank failed;
+the first rank to fail ends the others at once, and its exit code and
+stderr are named (`run_ranks`).
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ import numpy as np
 import torch
 
 TIMEOUT = 1200          # seconds a spawned rank may take
+PEER_TIMEOUT = 300      # seconds a spawned rank waits for a peer (the
+                        # rendezvous, a collective) before it raises
 
 
 def flagship(tiny: bool, device):
@@ -219,13 +223,84 @@ def _time_planned(bundle, scfg, tx, state, dev, batch: int, steps: int):
     return {k: [round(t * 1e3, 3) for t in v] for k, v in times.items()}
 
 
+def _drain(pipe, sink: List[str]) -> None:
+    """Read a child's pipe to its end into `sink`, a line at a time."""
+    for line in iter(pipe.readline, ""):
+        sink.append(line)
+    pipe.close()
+
+
+def run_ranks(cmds: List[List[str]], envs: List[dict], cwd: str,
+              timeout: float = TIMEOUT) -> int:
+    """Run one process a rank (`cmds[r]` in `envs[r]`, each in a session of
+    its own) and wait for all of them. A thread a pipe drains every rank's
+    stdout and stderr at once, so no rank blocks on a full pipe while its
+    peers wait on it in a collective. Once a rank exits non-zero, or
+    `timeout` seconds have passed, the ranks still running are killed: they
+    would wait on it in a collective. Then the ranks' stdout in rank
+    order, their stderr with each line tagged `[rank R]` and, on a failure,
+    every rank's exit code and each failed rank's code and stderr tail.
+    Returns the exit code of the lowest rank that failed on its own (1 for
+    a signal, 124 for the timeout), else 0."""
+    import signal
+    import threading
+    outs: List[List[str]] = [[] for _ in cmds]
+    errs: List[List[str]] = [[] for _ in cmds]
+    procs, readers, killed = [], [], []
+    try:
+        for cmd, env, out, err in zip(cmds, envs, outs, errs):
+            p = subprocess.Popen(cmd, env=env, cwd=cwd,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 errors="replace", start_new_session=True)
+            procs.append(p)
+            for pipe, sink in ((p.stdout, out), (p.stderr, err)):
+                readers.append(threading.Thread(target=_drain,
+                                                args=(pipe, sink),
+                                                daemon=True))
+                readers[-1].start()
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.05)
+    finally:
+        for r, p in enumerate(procs):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                killed.append(r)
+            p.wait()
+        for t in readers:
+            t.join()
+    for out in outs:
+        sys.stdout.write("".join(out))
+    sys.stdout.flush()
+    for r, err in enumerate(errs):
+        sys.stderr.write("".join(f"[rank {r}] {line}" for line in err))
+    failed = {r: p.returncode for r, p in enumerate(procs)
+              if p.returncode != 0 and r not in killed}
+    if not failed and not killed:
+        return 0
+    why = f"rank {min(failed)} failed" if failed \
+        else f"still running after {timeout:g} s"
+    print(f"dryrun: exit codes by rank {[p.returncode for p in procs]}"
+          + (f" (ranks {killed} killed: {why})" if killed else ""),
+          file=sys.stderr)
+    for r, code in sorted(failed.items()):
+        print(f"dryrun: rank {r} failed with exit code {code}; its stderr's "
+              f"last lines:\n" + "".join(errs[r][-40:]), file=sys.stderr)
+    if not failed:
+        return 124
+    code = failed[min(failed)]
+    return code if code > 0 else 1
+
+
 def _spawn(n: int, tiny: bool, device: str, extra: List[str]) -> int:
-    """N ranks of this module over gloo through a file rendezvous; their
-    stdout in rank order, their stderr as it comes; the worst exit code."""
-    me = [sys.executable, "-m", "ofb_tpu_torch.dryrun"]
+    """N ranks of this module over gloo through a file rendezvous
+    (`run_ranks`); the exit code of the first rank that failed, else 0."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory(prefix="ofb_dryrun_") as tmp:
-        rdzv = os.path.join(tmp, "rdzv")
         env = {k: v for k, v in os.environ.items() if k not in (
             "MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS",
             "NUM_PROCESSES", "PROCESS_ID", "TORCHELASTIC_RUN_ID")}
@@ -233,33 +308,13 @@ def _spawn(n: int, tiny: bool, device: str, extra: List[str]) -> int:
         env.setdefault("OMP_NUM_THREADS", "1")
         env["PYTHONPATH"] = os.pathsep.join(
             [root] + [p for p in [env.get("PYTHONPATH")] if p])
-        procs = []
-        for r in range(n):
-            renv = dict(env, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK="0")
-            cmd = me + ["--devices", str(n), "--device", device, "--rdzv",
-                        rdzv] + (["--tiny"] if tiny else []) + extra
-            procs.append(subprocess.Popen(cmd, env=renv, cwd=root,
-                                          stdout=subprocess.PIPE,
-                                          stderr=subprocess.PIPE, text=True,
-                                          start_new_session=True))
-        code, deadline = 0, time.time() + TIMEOUT
-        try:
-            for p in procs:
-                out, err = p.communicate(
-                    timeout=max(deadline - time.time(), 1.0))
-                sys.stdout.write(out)
-                sys.stderr.write(err)
-                code = code or p.returncode
-        except subprocess.TimeoutExpired:
-            print(f"dryrun: a rank outlasted {TIMEOUT} s", file=sys.stderr)
-            code = 124
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        sys.stdout.flush()
-        return code
+        cmd = [sys.executable, "-m", "ofb_tpu_torch.dryrun", "--devices",
+               str(n), "--device", device, "--rdzv",
+               os.path.join(tmp, "rdzv")] + (["--tiny"] if tiny else []) \
+            + extra
+        return run_ranks([cmd] * n, [dict(env, RANK=str(r),
+                                          WORLD_SIZE=str(n), LOCAL_RANK="0")
+                                     for r in range(n)], root)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -305,7 +360,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     backend = "gloo" if args.rdzv or device == "cpu" else "nccl"
     rank, world = init_distributed(
         backend, device=device,
-        init_method=f"file://{args.rdzv}" if args.rdzv else None)
+        init_method=f"file://{args.rdzv}" if args.rdzv else None,
+        timeout=PEER_TIMEOUT if args.rdzv else None)
     if args.devices and args.devices != world:
         ap.error(f"--devices {args.devices} in a world of {world}")
     if args.mesh and args.mesh[0] * args.mesh[1] != world:

@@ -20,7 +20,8 @@ runs over the pair (params, alphas), so its paths start with `0.` or `1.`
 (`0.patch_embed.score`, `1.blocks.3.attn`), and the finetune optimizer's
 over the params tree alone; the port's names are `patch_embed.score` and
 `alphas.blocks.3.attn`. `leaf_name` / `jax_path` map between the two, and
-`moments_from_jax` / `load_moments_from_jax` carry Adam's moments across.
+`moments_from_jax`, `opt_tensors_from_jax` and `load_moments_from_jax` carry
+Adam's moments across.
 """
 
 from __future__ import annotations
@@ -280,26 +281,28 @@ def _lr_scale(opt_state):
         if hasattr(opt_state, "inner") else None
 
 
+def opt_tensors_from_jax(opt_state) -> Dict[str, torch.Tensor]:
+    """A JAX optimizer state as the port's flat optimizer part (the layout
+    of a checkpoint's `opt_state.pt`): `count`, `scale` when it has a
+    plateau scale, and `mu.<leaf>` / `nu.<leaf>` in the port's names and
+    layouts, full tensors on the host."""
+    got = moments_from_jax(opt_state)
+    out = {"count": torch.tensor(got["count"], dtype=torch.int64)}
+    scale = _lr_scale(opt_state)
+    if scale is not None:
+        out["scale"] = torch.as_tensor(_f32(scale))
+    for which in ("mu", "nu"):
+        out.update({f"{which}.{n}": torch.from_numpy(a)
+                    for n, a in got[which].items()})
+    return out
+
+
 def load_moments_from_jax(state, opt_state):
     """Copy a JAX optimizer state's moments and update count into the
     port's `AdamWState` (or the `LrScaleState` around one, with its
-    plateau scale), in place."""
-    from ..core.optim import set_count
-    adam = getattr(state, "inner", state)
-    scale = _lr_scale(opt_state)
-    if (scale is None) != (adam is state):
-        raise KeyError("JAX optimizer state and the port's differ: one has "
-                       "a plateau scale (with_lr_scale), the other not")
-    if scale is not None:
-        with torch.no_grad():
-            state.scale.copy_(torch.as_tensor(_f32(scale)))
-    got = moments_from_jax(opt_state)
-    if set(got["mu"]) != set(adam.mu):
-        raise KeyError("JAX optimizer state and the port's differ in leaves: "
-                       f"{sorted(set(got['mu']) ^ set(adam.mu))[:8]}")
-    with torch.no_grad():
-        for which in ("mu", "nu"):
-            for name, dst in getattr(adam, which).items():
-                dst.copy_(torch.from_numpy(got[which][name]).to(dst.device))
-    set_count(adam, got["count"])
+    plateau scale), in place, as a checkpoint's optimizer part is
+    restored (`core/checkpoint.py:restore_part`)."""
+    from ..core.checkpoint import restore_part
+    restore_part("opt_state", state, opt_tensors_from_jax(opt_state),
+                 "the JAX optimizer state")
     return state

@@ -9,7 +9,8 @@ its in21k models (tanh pre-logits), the MIIL models (no qkv bias), the
 `vit_deit_*` aliases and the Swin family: `swin_{tiny,small,base}_patch4_
 window7_224` (dense, kind 'swin') and the same names with `_mim` (the
 searchable Swin, kind 'swin_mim', whose factory takes the search flags,
-`embed_search` among them).
+`embed_search` among them). `register_model` adds a factory of the
+caller's.
 """
 
 from __future__ import annotations
@@ -60,6 +61,15 @@ class ModelBundle:
         arch = ArchState.create(self.space)
         return (params.to(self.device), alphas.to(self.device),
                 arch.to(self.device))
+
+
+def register_model(fn):
+    """Register the factory `fn` under its name (a decorator, the JAX
+    package's `register_model`): `create_model(fn.__name__, device=...,
+    **kwargs)` calls `fn(device=<torch.device>, **kwargs)`, which returns
+    a `ModelBundle`, and `list_models` lists it."""
+    _REGISTRY[fn.__name__] = fn
+    return fn
 
 
 def list_models():

@@ -25,6 +25,7 @@ mesh is what it was.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -123,14 +124,17 @@ def _launch_env() -> Optional[Tuple[int, int, str]]:
 
 
 def init_distributed(backend: Optional[str] = None, *, device="cuda",
-                     init_method: Optional[str] = None) -> Tuple[int, int]:
+                     init_method: Optional[str] = None,
+                     timeout: Optional[float] = None) -> Tuple[int, int]:
     """Join the process group the environment describes; returns (rank,
     world). An existing group is kept. Without a launcher's environment no
     group is joined and (0, 1) comes back, as the JAX package's call is a
     no-op on one host. `backend` defaults to NCCL on `device` "cuda" and
     gloo on "cpu"; on the card this process takes cuda:LOCAL_RANK.
     `init_method` (e.g. a `file://` path) replaces the environment's
-    rendezvous, whose rank and world it still reads."""
+    rendezvous, whose rank and world it still reads. `timeout` (seconds)
+    bounds the rendezvous and every collective's wait for a peer, after
+    which they raise (torch's default without it)."""
     if group_active():
         return rank_world()
     launch = _launch_env()
@@ -140,9 +144,11 @@ def init_distributed(backend: Optional[str] = None, *, device="cuda",
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(local_rank())
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(
         backend or ("nccl" if dev.type == "cuda" else "gloo"),
-        init_method=init_method or method, rank=rank, world_size=world)
+        init_method=init_method or method, rank=rank, world_size=world, **kw)
     return rank, world
 
 

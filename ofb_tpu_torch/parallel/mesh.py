@@ -19,7 +19,10 @@ partitioner and the port from `parallel/tensor_parallel.py`.
   * `param_sharding_rules` — leaf name -> `Replicate()` / `Shard(dim)` in
     the port's (out, in) weight layout, the JAX package's placements;
   * `shard_params` / `gather_params` — a replicated supernet cut into this
-    rank's shards on the model axis, and the full tensors put back.
+    rank's shards on the model axis, and the full tensors put back;
+    `core/checkpoint.py:load_checkpoint` takes the same cut of a saved
+    full tensor (`shard_tensor`, `full_shape`) when it restores into a
+    sharded supernet.
 
 The shards differ from the JAX package's contiguous `Shard(0)` of the qkv
 rows on purpose. Those rows are laid out [3][H][hd], so a contiguous half
@@ -256,6 +259,17 @@ def unshard_tensor(name: str, pieces: List[torch.Tensor],
     return out
 
 
+def full_shape(name: str, shard_shape, layout: TPLayout) -> Tuple[int, ...]:
+    """The shape of the full leaf whose shard on this rank has `shard_shape`
+    (`shard_shape` itself for a replicated leaf)."""
+    at = layout.index(name)
+    shape = list(shard_shape)
+    if at is not None:
+        shape[at[0]] = sum(len(layout.index(name, r)[1])
+                           for r in range(layout.size))
+    return tuple(shape)
+
+
 def gather_tensor(name: str, shard: torch.Tensor,
                   layout: TPLayout) -> torch.Tensor:
     """The full leaf from this rank's shard and its model group's: an
@@ -263,10 +277,7 @@ def gather_tensor(name: str, shard: torch.Tensor,
     rows come back exact, as in `distributed.gather_rows`)."""
     import torch.distributed as dist
     dim, idx = layout.index(name)
-    shape = list(shard.shape)
-    shape[dim] = sum(len(layout.index(name, r)[1])
-                     for r in range(layout.size))
-    out = shard.new_zeros(shape)
+    out = shard.new_zeros(full_shape(name, shard.shape, layout))
     out.index_copy_(dim, torch.from_numpy(idx).to(shard.device),
                     shard.detach())
     dist.all_reduce(out, group=model_group())

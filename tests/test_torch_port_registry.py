@@ -19,7 +19,9 @@ family's pieces against ofb_tpu on the CPU, in fp32, from the same weights:
 * a patch size that does not divide the image (ViT-H/14 at 384: 27 x 27
   patches of VALID convolution, 6 pixels dropped): a tiny ViT's logits
   against JAX's, and the pos-embed resized from 14 x 14 to 27 x 27 as
-  JAX's `interpolate_pos_embed` resizes it.
+  JAX's `interpolate_pos_embed` resizes it;
+* `register_model`: a factory registered in both packages is listed and
+  created, with the same config.
 """
 
 import dataclasses
@@ -269,3 +271,46 @@ def test_a_patch_that_does_not_divide_the_image_matches_jax():
     got = P.interpolate_pos_embed(torch.from_numpy(pe), huge.num_patches)
     assert got.shape == want.shape == (1, 730, 16)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# register_model
+# ---------------------------------------------------------------------------
+
+def test_a_registered_factory_is_listed_and_created(monkeypatch):
+    """`register_model` as the JAX package's: the decorated factory is
+    listed under its name and `create_model` calls it (the port's with the
+    resolved device and the caller's keywords). Each registry is a copy
+    for this test, so no other test sees the name."""
+    monkeypatch.setattr(JR, "_REGISTRY", dict(JR._REGISTRY))
+    monkeypatch.setattr(R, "_REGISTRY", dict(R._REGISTRY))
+    kw = dict(TINY, num_classes=5)
+
+    def tiny_registered_vit(num_classes=kw["num_classes"]):
+        return dict(kw, num_classes=num_classes)
+
+    @JR.register_model
+    def jax_side(**over):
+        return JR.ModelBundle(name="tiny_registered_vit",
+                              cfg=jvit.ModelCfg(**tiny_registered_vit(
+                                  **over)), kind="dense")
+
+    @R.register_model
+    def port_side(*, device, **over):
+        return R.ModelBundle(name="tiny_registered_vit",
+                             cfg=ModelCfg(**tiny_registered_vit(**over)),
+                             space=None, device=device, kind="dense")
+
+    assert jax_side is JR._REGISTRY["jax_side"]
+    assert port_side is R._REGISTRY["port_side"]
+    assert "jax_side" in JR.list_models() and "port_side" in R.list_models()
+    assert R.list_models() == sorted(JAX_NAMES + SWIN + ["port_side"])
+    for over in ({}, {"num_classes": 3}):
+        jb = JR.create_model("jax_side", **over)
+        pb = R.create_model("port_side", device="cpu", **over)
+        assert dataclasses.asdict(pb.cfg) == dataclasses.asdict(jb.cfg)
+        assert pb.device == torch.device("cpu") and pb.kind == jb.kind
+    vit = pb.init(0)
+    assert isinstance(vit, ViT) and vit.head.weight.shape[0] == 3
+    with pytest.raises(KeyError, match="unknown model"):
+        R.create_model("jax_side", device="cpu")

@@ -27,7 +27,19 @@ meshes run at once, while this process computes JAX's steps.
   port's): each shard takes its part of the whole tensor's dropout mask;
 * `shard_params` -> `gather_params` is the identity, `tp > H` raises, the
   clip of sharded leaves is optax's `clip_by_global_norm` of the whole
-  ones.
+  ones;
+* resume (`core/checkpoint.py:load_checkpoint` into a sharded supernet):
+  each mesh saves its state after the forced compress, and a fresh
+  supernet sharded on the same mesh restores it and takes the post-prune
+  step, whose metrics and whole state (leaves, moments, EMA) are the
+  uninterrupted step's bit for bit, so within JAX's tolerances above of
+  JAX's one-device step; the (2, 2) mesh's checkpoint resumed at (1, 2)
+  and in this process (no group) is within them too; the JAX package's
+  msgpack checkpoint of the same supernet restored into each mesh's
+  sharded supernet gathers to this process's restore of it exactly; in
+  process, without a group, each model rank restores its shards of every
+  saved tensor, and a checkpoint of another width, head count or MLP
+  width raises ValueError naming the leaf and restores nothing.
 """
 
 import json
@@ -45,6 +57,7 @@ import torch
 import torch_multiproc_worker as W
 import torch_tp_worker as T
 from ofb_tpu import config as JC
+from ofb_tpu.core import checkpoint as JCk
 from ofb_tpu.core import compress as JCo
 from ofb_tpu.core import optim as JO
 from ofb_tpu.core import steps as JS
@@ -91,6 +104,22 @@ def _data(cfg_kw):
     return data, (jcfg, jspace, jp, ja, jarch), keys
 
 
+def _jax_checkpoint(pieces, path):
+    """The JAX package's msgpack checkpoint of its supernet: params,
+    alphas, arch, the search optimizer's state after one update on random
+    gradients (moments not zero, count 1) and half the params as EMA."""
+    _, _, jp, ja, jarch = pieces
+    jtx, _ = W.build_tx(JO, W.search_cfg(JC))
+    rng = np.random.default_rng(5)
+    grads = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.normal(0, 0.1, a.shape), jnp.float32),
+        (jp, ja))
+    _, jst = jtx.update(grads, jtx.init((jp, ja)), (jp, ja))
+    JCk.save_checkpoint(str(path), params=jp, alphas=ja, arch=jarch,
+                        opt_state=jst, ema_params=jax.tree_util.tree_map(
+                            lambda x: 0.5 * x, jp), meta={"epoch": 0})
+
+
 def _jax_run(data, pieces, keys):
     """JAX's one-device step, the forced compress and the post-prune step:
     ({tag: {name: array}}, [metrics], compress report, switches)."""
@@ -133,7 +162,7 @@ def _jax_run(data, pieces, keys):
     return got, metrics, report, switches
 
 
-def _spawn(mesh, rank, npz, tmp):
+def _spawn(mesh, rank, npz, tmp, resume_from=()):
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     for k in ("MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS"):
         env.pop(k, None)
@@ -141,7 +170,7 @@ def _spawn(mesh, rank, npz, tmp):
     return subprocess.Popen(
         [sys.executable, os.path.join(REPO, "tests", "torch_tp_worker.py"),
          str(rank), str(dp * tp), str(dp), str(tp), str(tmp / "rdzv"),
-         str(npz), str(tmp)],
+         str(npz), str(tmp), *map(str, resume_from)],
         env=env, cwd=str(tmp), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 
@@ -155,14 +184,29 @@ def _last_json(out):
     raise AssertionError(f"no JSON line in: {out[-1500:]}")
 
 
+def _finish(procs):
+    """The JSON results of one mesh's ranks, once they exit."""
+    results = []
+    for p in procs:
+        o, e = p.communicate(timeout=TIMEOUT)
+        assert p.returncode == 0, (e[-3000:], o[-1500:])
+        results.append(_last_json(o))
+    return results
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{mesh: (rank results, rank arrays)} of every mesh's ranks, and
-    {heads: (data, JAX's run, the port's one-process run)}."""
+    """{mesh: (rank results, rank arrays, its directory)} of every mesh's
+    ranks and, under "cross", {"1x2" / "1": (results, arrays)} of the (2, 2)
+    mesh's checkpoint resumed at (1, 2) and in this process; and {heads:
+    (data, JAX's run, the port's one-process run, this process's restore
+    of the JAX checkpoint)}."""
     root = tmp_path_factory.mktemp("tp")
     datas = {}
     for kw in (CFG, CFG4):
         data, pieces, keys = _data(kw)
+        data["jax_ckpt"] = str(root / f"jax{kw['num_heads']}")
+        _jax_checkpoint(pieces, data["jax_ckpt"])
         npz = root / f"data{kw['num_heads']}.npz"
         np.savez(npz, **data)
         datas[kw["num_heads"]] = (npz, pieces, keys)
@@ -176,25 +220,36 @@ def runs(tmp_path_factory):
             else datas[_cfg_of(mesh)["num_heads"]][0]
         procs[mesh] = (tmp, [_spawn(mesh[:2], r, npz, tmp)
                              for r in range(mesh[0] * mesh[1])])
-    refs = {}
+    refs, cross = {}, []
     try:
         for heads, (npz, pieces, keys) in datas.items():
             data = np.load(npz)
+            jstate = T.restored(data, str(data["jax_ckpt"]))[0]
             refs[heads] = (data, _jax_run(data, pieces, keys),
-                           T.run(data, out=None))
+                           T.run(data, out=None),
+                           T.gathered(jstate, "jaxck", ("mu", "nu"),
+                                      ema=True))
         refs["drop"] = T.run(np.load(root / "drop.npz"))
         out = {}
         for mesh, (tmp, ps) in procs.items():
-            results = []
-            for p in ps:
-                o, e = p.communicate(timeout=TIMEOUT)
-                assert p.returncode == 0, (mesh, e[-3000:], o[-1500:])
-                results.append(_last_json(o))
+            results = _finish(ps)
+            if mesh == (2, 2):
+                # the (2, 2) mesh's checkpoint resumed at (1, 2)
+                ctmp = root / "cross1x2"
+                ctmp.mkdir()
+                cross = [_spawn((1, 2), r, datas[2][0], ctmp,
+                                [tmp / "resume"]) for r in range(2)]
             arrays = [dict(np.load(tmp / f"rank{r}.npz"))
                       for r in range(len(ps))]
             out[mesh] = (results, arrays, tmp)
+        # ... and in this process, without a group
+        one = T.resume(refs[2][0], str(out[(2, 2)][2] / "resume"))
+        out["cross"] = {"1": ([{"resumed": one[1]}], [one[0]]),
+                        "1x2": (_finish(cross), [
+                            dict(np.load(ctmp / f"rank{r}.npz"))
+                            for r in range(2)])}
     finally:
-        for _, ps in procs.values():
+        for ps in [ps for _, ps in procs.values()] + [cross]:
             for p in ps:
                 if p.poll() is None:
                     p.kill()
@@ -209,7 +264,7 @@ def _ref(runs, mesh):
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_sharded_step_matches_jax_one_device(runs, mesh):
     results, arrays, _ = runs[0][mesh]
-    _, (jgot, jmetrics, _, _), _ = _ref(runs, mesh)
+    _, (jgot, jmetrics, _, _), _, _ = _ref(runs, mesh)
     a = arrays[0]
     for k, tag in enumerate(("step0", "step1")):
         np.testing.assert_allclose(results[0]["metrics"][k]["loss_total"],
@@ -237,7 +292,7 @@ def test_ranks_gather_one_state(runs, mesh):
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_forced_compress_takes_jax_decisions(runs, mesh):
     results, arrays, _ = runs[0][mesh]
-    _, (_, _, jreport, jswitch), _ = _ref(runs, mesh)
+    _, (_, _, jreport, jswitch), _, _ = _ref(runs, mesh)
     assert jreport.execute_prune
     assert results[0]["events"] == list(jreport.events)
     for name, want in jswitch.items():
@@ -247,7 +302,7 @@ def test_forced_compress_takes_jax_decisions(runs, mesh):
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_gathered_export_equals_one_process(runs, mesh):
     results, arrays, _ = runs[0][mesh]
-    _, _, (single, srun) = _ref(runs, mesh)
+    _, _, (single, srun), _ = _ref(runs, mesh)
     assert results[0]["finished"] and srun["finished"]
     assert results[0]["block_dims"] == srun["block_dims"]
     a = arrays[0]
@@ -383,3 +438,175 @@ def test_clip_of_sharded_leaves_is_optax(runs, mesh):
     for n, g in want.items():
         np.testing.assert_allclose(arrays[0][f"clip.{n}"], np.asarray(g),
                                    rtol=1e-6, atol=1e-7, err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# resume into a sharded supernet
+# ---------------------------------------------------------------------------
+
+def _close_to_jax(metrics, a, tag, jgot, jmetrics):
+    """The post-prune step's loss within JAX's rtol, and every gathered
+    leaf (the qkv weights and the alphas among them) within its atol, of
+    JAX's one-device post-prune step."""
+    np.testing.assert_allclose(metrics["loss_total"],
+                               jmetrics[1]["loss_total"], rtol=2e-4)
+    for name, want in jgot["step1"].items():
+        np.testing.assert_allclose(a[f"{tag}.{name}"], want, rtol=0,
+                                   atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_resumed_step_is_the_uninterrupted_one(runs, mesh):
+    """The checkpoint saved after the forced compress, restored into a
+    fresh supernet sharded on the same mesh: its post-prune step's metrics
+    and its whole state (every leaf, both moments, EMA) are the
+    uninterrupted step's bit for bit on every rank."""
+    results, arrays, _ = runs[0][mesh]
+    _, (jgot, jmetrics, _, _), _, _ = _ref(runs, mesh)
+    for r, a in zip(results, arrays):
+        assert r["resumed"] == r["metrics"][1]
+        step1 = [n for n in a if n.startswith("step1.")]
+        assert any(".nu." in n for n in step1) and any(
+            ".ema." in n for n in step1)
+        assert sorted("resumed." + n[6:] for n in step1) == sorted(
+            n for n in a if n.startswith("resumed."))
+        for n in step1:
+            assert np.array_equal(a["resumed." + n[6:]], a[n]), n
+    _close_to_jax(results[0]["resumed"], arrays[0], "resumed", jgot,
+                  jmetrics)
+
+
+@pytest.mark.parametrize("to", ["1x2", "1"])
+def test_resume_across_meshes_matches_jax(runs, to):
+    """The (2, 2) mesh's checkpoint resumed at (1, 2) and in one process
+    (this one, no group): the post-prune step within JAX's tolerances of
+    JAX's one-device step; the ranks of (1, 2) agree bit for bit."""
+    results, arrays = runs[0]["cross"][to]
+    _, (jgot, jmetrics, _, _), _, _ = _ref(runs, (2, 2))
+    _close_to_jax(results[0]["resumed"], arrays[0], "resumed", jgot,
+                  jmetrics)
+    for r, a in zip(results[1:], arrays[1:]):
+        assert r == results[0]
+        for n in arrays[0]:
+            assert np.array_equal(a[n], arrays[0][n]), n
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_jax_checkpoint_restores_into_the_sharded_supernet(runs, mesh):
+    """The JAX package's msgpack checkpoint of the same supernet, restored
+    into a fresh supernet sharded on the mesh: its gathered params,
+    alphas, moments and EMA are this process's restore of the file
+    exactly, the update count JAX's."""
+    results, arrays, _ = runs[0][mesh]
+    want = _ref(runs, mesh)[3]
+    got = {n: t for n, t in arrays[0].items() if n.startswith("jaxck.")}
+    assert set(got) == set(want) and any(".nu." in n for n in got)
+    for n, t in want.items():
+        assert np.array_equal(got[n], t), n
+    assert np.abs(want["jaxck.mu.blocks.0.attn.qkv.weight"]).max() > 0
+    assert [r["jaxck_count"] for r in results] == [1] * len(results)
+
+
+class _ModelAxis:
+    """What `shard_params` reads of a (1, size) mesh at one model rank: a
+    rank's shards without a process group (a restore takes no
+    collective)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, size, rank):
+        self.n, self.rank = size, rank
+
+    def size(self, dim):
+        return (1, self.n)[dim]
+
+    def get_local_rank(self, name):
+        assert name == "model"
+        return self.rank
+
+
+def _parts(path):
+    return {n: torch.load(os.path.join(path, f"{n}.pt"))
+            for n in ("params", "alphas", "arch", "opt_state", "ema")}
+
+
+def _state_tensors(state):
+    from ofb_tpu_torch.core import checkpoint as ck
+    return {f"{part}.{n}": t.detach().clone() for part, obj in (
+        ("params", state.params), ("alphas", state.alphas),
+        ("arch", state.arch), ("opt_state", state.opt_state),
+        ("ema", state.ema_params)) for n, t in ck._live(part, obj).items()}
+
+
+@pytest.mark.parametrize("heads,tp", [(2, 2), (4, 4), (4, 2)])
+def test_each_rank_restores_its_shards_in_process(runs, heads, tp):
+    """The one-process checkpoint of the (2, 2) / (1, 4) mesh's state after
+    the forced compress, and the JAX package's checkpoint, restored at
+    each model rank of `tp` without a group: every sharded leaf of the
+    params, moments and EMA is `shard_tensor` of the saved full tensor
+    (for the JAX file, of this process's restore of it), every other
+    tensor the saved one."""
+    from ofb_tpu_torch.core import checkpoint as ck
+    data = runs[1][heads][0]
+    path = str(runs[0][(2, 2) if heads == 2 else (1, 4)][2] / "resume")
+    saved = _parts(path)
+    one = _state_tensors(T.restored(data, str(data["jax_ckpt"]))[0])
+    for rank in range(tp):
+        state = T.build(data, _ModelAxis(tp, rank), seed=7)[2]
+        layout = M.tp_of(state.params)
+        assert layout is not None and layout.rank == rank
+        for src, want in ((path, {f"{p}.{n}": t for p, part in saved.items()
+                                  for n, t in part.items()}),
+                          (str(data["jax_ckpt"]), one)):
+            ck.load_checkpoint(src, params=state.params, alphas=state.alphas,
+                               arch=state.arch, opt_state=state.opt_state,
+                               ema_params=state.ema_params)
+            got = _state_tensors(state)
+            assert set(got) == set(want)
+            cut = 0
+            for n, t in got.items():
+                part, leaf = n.split(".", 1)
+                w = want[n]
+                if part in ck.SHARDED_PARTS and M.shard_kind(leaf):
+                    w = M.shard_tensor(leaf, w, layout)
+                    cut += w.shape != want[n].shape
+                assert torch.equal(t, w), (src, rank, n)
+            # 6 sharded leaves a block, in params, mu, nu and EMA
+            assert cut == 6 * 2 * 4
+
+
+@pytest.mark.parametrize("other,leaf", [
+    # wider: every sharded leaf differs; qkv comes first
+    (dict(embed_dim=48, num_heads=3),
+     r"params\.blocks\.0\.attn\.qkv\.weight saved \(144, 48\), live a "
+     r"shard \(48, 32\) of \(96, 32\)"),
+    # 4 heads of 8 at the same width: the sharded leaves fit, the
+    # replicated head score does not
+    (dict(num_heads=4),
+     r"params\.blocks\.0\.attn\.score saved \(4, 8\), live \(1, 16\)"),
+    # a wider MLP
+    (dict(mlp_ratio=3.0),
+     r"params\.blocks\.0\.mlp\.fc1\.weight saved \(96, 32\), live a "
+     r"shard \(32, 32\) of \(64, 32\)")], ids=["width", "heads", "mlp"])
+def test_another_width_or_head_count_raises_naming_the_leaf(runs, tmp_path,
+                                                            other, leaf):
+    """A checkpoint of another width, head count or MLP width, restored
+    into the (2 heads, embed 32) supernet sharded at model rank 1 of 2:
+    ValueError naming the first leaf that does not fit (a sharded leaf's
+    saved full tensor against the full shape of its live shard; a
+    replicated leaf's against the live one), and nothing is restored."""
+    from ofb_tpu_torch.core import checkpoint as ck
+    src = T.build({"cfg": json.dumps(dict(CFG, **other))}, seed=3)[2]
+    ck.save_checkpoint(str(tmp_path / "other"), params=src.params,
+                       alphas=src.alphas, arch=src.arch,
+                       opt_state=src.opt_state, ema_params=src.ema_params)
+    state = T.build(runs[1][2][0], _ModelAxis(2, 1), seed=7)[2]
+    before = _state_tensors(state)
+    with pytest.raises(ValueError, match=leaf):
+        ck.load_checkpoint(str(tmp_path / "other"), params=state.params,
+                           alphas=state.alphas, arch=state.arch,
+                           opt_state=state.opt_state,
+                           ema_params=state.ema_params)
+    after = _state_tensors(state)
+    for n, t in before.items():
+        assert torch.equal(after[n], t), n
