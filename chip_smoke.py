@@ -7,34 +7,41 @@ which raises (and so exits non-zero) on failure:
   1. card: name and power limit, CUDA version, and the build of every
      kernel from ofb_tpu_torch/csrc (one nvcc per source, in parallel);
   2. kernels: each kernel's wrapper against its plain PyTorch twin on the
-     same inputs, all three bodies (the resident and the streaming `wgmma`
-     ones and the general one, each asked for by name), at the DeiT-S
-     shapes of the search step, the exported subnet's shapes (head dims
-     8 * odd among them, which the `wgmma` bodies run zero-padded to the
-     next multiple of 16), ragged shapes and head dims that are not a
-     multiple of 8 (4, 6, 12, 36: the general body's alone), in bf16 and
-     fp32 (TF32 off), the general body also on views whose rows start one
-     element into a wider buffer (no row 16-byte aligned);
+     same inputs, all four bodies (the resident, the streaming and the
+     unaligned `wgmma` ones in bf16, the general one in fp32, each asked
+     for by name), at the DeiT-S shapes of the search step, the exported
+     subnet's shapes (head dims 8 * odd among them, which the `wgmma`
+     bodies run zero-padded to the next multiple of 16), ragged shapes and
+     head dims that are not a multiple of 8 (4, 6, 12, 36: the unaligned
+     body's in bf16, the general body's in fp32; TF32 off), the unaligned
+     and the general bodies also on views whose rows start one element
+     into a wider buffer (no row 16-byte aligned), and the unaligned body
+     at UNALIGNED (an odd head dim at 577 tokens, one token, d = 128 one
+     element in) and at phase 3's UNALIGNED_TIMING;
      the streaming body at DeiT-S and DeiT-B at 384 pixels (577 tokens),
      ragged token counts up to 1025, 8 * odd head dims at 577 and, named,
      at 1, 17 and 197 tokens; every output finite; then the streaming
      pair's determinism at DeiT-S-384 and ViT-H/14 (STREAM_REPEAT): a
      second call, and a CUDA graph of forward + backward replayed, equal
      the first eager call bit for bit;
-  3. timing: both bodies of each kernel with CUDA events at batch 256, in
-     turns (general, resident, resident, general), beside the bound, the
+  3. timing: the resident and the unaligned bodies of each kernel with
+     CUDA events at batch 256, in turns (unaligned, resident, resident,
+     unaligned), beside the bound, the
      plain twin and torch's scaled_dot_product_attention (timed here as a
      yardstick only; the port never calls it); the resident body also at
      batch 64; then at each attention shape of the exported subnet, batch
-     256: resident, general (asked for by name), twin and SDPA. Each of
+     256: resident, unaligned (asked for by name), twin and SDPA. Each of
      these also as device time (torch.profiler: the kernels' summed
      durations, the host's dispatch left out; a session that lost kernel
      records is run again). At 577 tokens (DeiT-S and DeiT-B at 384
-     pixels, and an exported subnet's 2 x 24 head) the general and the
+     pixels, and an exported subnet's 2 x 24 head) the unaligned and the
      streaming bodies in turns the same way, beside the twin, SDPA, the
      bytes and the operations bounds; the streaming body must be the
      faster at DeiT-S (its ratio to SDPA is printed, not asserted: timing
-     noise across cards would fail honest runs). Then each attention shape
+     noise across cards would fail honest runs). Then the unaligned body
+     at UNALIGNED_TIMING (DeiT-S's view one element in, the search grids'
+     head dims 20 and 36 at 197 and 577 tokens, the story's 17 tokens)
+     beside the twin, SDPA and the bound. Then each attention shape
      of the ViT family (VIT_SHAPES: ViT-H/14, ViT-L/16 at 384, the 8 x 96
      vit_small, ViT-B/16 and /32) at the batch of phase 10's runs: its
      body, the twin and SDPA beside the bound; and the general body in
@@ -63,7 +70,7 @@ which raises (and so exits non-zero) on failure:
      and eval steps on the subnet in bf16, their attention launches
      counted from 0 and held, body by body, to what `attention_body`
      predicts for each block's (N, d): all 12 blocks, head dims 24, 40 and
-     56 among them, through the resident body, none through the general;
+     56 among them, through the resident body, none through another;
   7. the CLIs, in process through each one's parser and `main`, DeiT-S at
      full width and depth, batch 64, bf16, SYNTHETIC data at staging 256:
      `cli.search` (fused RandAugment m9 + erasing, Mixup / CutMix after the
@@ -73,7 +80,7 @@ which raises (and so exits non-zero) on failure:
      subnet (EMA, device cache) and `cli.eval` of its best. Checks the
      artifacts, log.txt's keys against the JAX CLI's, finite losses,
      accuracies in [0, 100], and each run's attention launches counted from
-     0 against what `attention_body` predicts (all resident, none general);
+     0 against what `attention_body` predicts (all resident);
      prints each run's sustained epoch img/s and the split of its epochs,
      the compress passes' host ms, and the device time of
      `apply_train_augment` at batch 256 next to the search step's;
@@ -83,8 +90,7 @@ which raises (and so exits non-zero) on failure:
      `cli.eval` of its best; then phase 7's exported subnet finetuned for
      one epoch at `--input-size 384` (its pos-embed resized 197 -> 577)
      and evaluated. Every attention launch of the four runs, counted from
-     0, must take the streaming body (577 tokens), none the resident or
-     the general.
+     0, must take the streaming body (577 tokens), none another.
 
   9. the planned path (the epoch's plan on the device, each step one CUDA
      graph replay), DeiT-S at full width and depth, bf16, batch 64, from a
@@ -121,7 +127,7 @@ which raises (and so exits non-zero) on failure:
      (batch 32, streaming body); one eval batch of the in21k ViT-B/16
      (pre-logits), the MIIL ViT-B/16 (no qkv bias) and the 8 x 96
      vit_small, and their fp32 logits and gradients on the card against
-     the CPU's. No bf16 run launches the general body.
+     the CPU's. No bf16 run launches the unaligned or the general body.
 
  11. the Swin family (`run_swin`), Swin-T with per-stage widths at full
      width and depth: the fp32 gated forward and backward on the card
@@ -230,8 +236,8 @@ which raises (and so exits non-zero) on failure:
      finetune steps; exported FLOPs below dense; its launches by body
      reported) and `dryrun.entry()` (finite (8, 1000) logits, 12 resident
      launches); then, where the story's subnet has head dims off a
-     multiple of 8, the general body in bf16 at its shapes (batch 128)
-     beside the twin, SDPA and the bound.
+     multiple of 8, the unaligned body at its shapes (batch 128) beside
+     the twin, SDPA and the bound.
 
 The line before the last is the kernels' JSON (`launches` sums the twelve
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
@@ -240,8 +246,9 @@ driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
 `launches_tp` (phase 13's (a) to (c) with the resumed steps),
 `launches_ladder` (phase 14's
 processes) and `launches_tools` (phase 15) give each;
-the general body's times are fp32's, with a `bf16_story` list, one entry
-a shape at which phase 15 checked and timed it in bf16); the
+the general body's times are fp32's; the unaligned body's are at the
+first shape of UNALIGNED_TIMING, with every timed shape under `shapes` and
+the shapes at which phase 15 checked and timed it under `story`); the
 last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -278,16 +285,29 @@ RAGGED = [(3, 17, 2, 16), (3, 17, 2, 8), (2, 33, 3, 24), (2, 70, 2, 40),
 RESIDENT = [DEIT_S, (2, 197, 6, 32), (2, 197, 3, 128), (2, 50, 4, 32),
             (2, 256, 2, 64)] + RAGGED + SUBNET
 # head dims off multiples of 8 (a tiny search exports 4 .. 16), which only
-# the general body takes: DeiT's 197 tokens, a Swin window with its cls,
-# DeiT at 384 pixels, a ragged count
+# the unaligned body (bf16) and the general body (fp32) take: DeiT's 197
+# tokens, a Swin window with its cls, DeiT at 384 pixels, a ragged count
 SMALL_HEADS = [(2, 197, 2, 12), (3, 50, 3, 6), (2, 577, 2, 36), (3, 17, 1, 4)]
-# the general body: unaligned views, fp32 and head dims off multiples of 8;
-# asked for by name at the resident and the streaming bodies' shapes too
+# the unaligned body in bf16 and the general body in fp32: head dims off
+# multiples of 8; asked for by name at the resident and the streaming
+# bodies' shapes too
 GENERAL = [DEIT_S, (2, 257, 2, 64), (2, 577, 2, 64)] + RAGGED + SUBNET \
     + SMALL_HEADS
 # ... and as views whose rows start one element into a wider buffer, so that
-# no row is 16-byte aligned (the 4-byte copies of the fp32 kernels)
+# no row is 16-byte aligned (the 4-byte copies of the fp32 kernels; bf16
+# rows that start on 2 bytes only)
 GENERAL_UNALIGNED = SMALL_HEADS + [(2, 197, 2, 64), (3, 17, 2, 40)]
+# the unaligned body, (shape, offset in elements): an odd head dim above
+# 256 tokens (rows on 2 bytes), one token, the widest head one element in
+UNALIGNED = [((2, 577, 2, 21), 0), ((3, 1, 2, 20), 0), ((2, 197, 2, 128), 1)]
+# ... timed in phase 3: DeiT-S's search-step shape as a view one element
+# into its rows (so no body but this one takes it), the search grids' head
+# dims 20 (of a 32-wide head) and 36 (of vit_small's 96) at 197 tokens and
+# 20 at DeiT at 384 pixels, and the compression story's subnet (17 tokens,
+# phase 15)
+UNALIGNED_TIMING = [((256, 197, 6, 64), 1), ((256, 197, 6, 20), 0),
+                    ((256, 197, 4, 36), 0), ((64, 577, 6, 20), 0),
+                    ((128, 17, 2, 20), 0)]
 # the streaming body: DeiT-S and DeiT-B at 384 pixels (577 = 4 x 128 + 65
 # keys in the forward's tiles, 9 x 64 + 1 in the backward's), ragged token
 # counts (1025 = 8 x 128 + 1: the forward's 16-key last tile; 17 backward
@@ -320,7 +340,7 @@ FP32_TIMING = [(256, 197, 6, 64), (256, 577, 6, 64)]
 # pixels (the batches of the search step at 224), an exported subnet's
 # narrowest head
 STREAM_TIMING = [(256, 577, 6, 64), (64, 577, 12, 64), (256, 577, 2, 24)]
-BODIES = ("resident", "streaming", "general")
+BODIES = ("resident", "streaming", "unaligned", "general")
 # fp32 logits of two forms of one model on the card, as max |a - b| over
 # max |b|: 12 blocks of fp32 sums in other orders (TF32 off)
 TOL_LOGITS = 1e-4
@@ -522,21 +542,26 @@ def uncancelled_scales(q, k, v, do):
 def check_kernels(A, cases=None):
     """Phase 2. Returns the max abs errors of the resident body at the
     search step's shape and type (DeiT-S, bf16), of the general body at
-    that shape in fp32 (the type it serves) and of the streaming body at
-    DeiT-S at 384 pixels, batch 64. `cases` ((shape, dtype, body), ...)
-    replaces phase 2's list (phase 13's head counts, phase 15's bf16
-    general shapes, whose errors are returned by (shape, kernel name))."""
+    that shape in fp32 (the type it serves), of the streaming body at
+    DeiT-S at 384 pixels, batch 64, and of the unaligned body at the first
+    shape of UNALIGNED_TIMING (by kernel name); and those of the unaligned
+    body at every shape it was held at, by ((shape, offset), kernel name).
+    `cases` ((shape, dtype, body[, offset]), ...) replaces phase 2's list
+    (phase 13's head counts, phase 15's story shapes)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases_given = cases is not None
     if cases is None:
+        bodies = ((torch.bfloat16, "unaligned"), (torch.float32, "general"))
         cases = [(shape, torch.bfloat16, "resident") for shape in RESIDENT]
         cases += [(shape, torch.bfloat16, "streaming")
                   for shape in STREAMING]
-        cases += [(shape, dtype, "general") for shape in GENERAL
-                  for dtype in (torch.bfloat16, torch.float32)]
-        cases += [(shape, dtype, "general", 1) for shape in GENERAL_UNALIGNED
-                  for dtype in (torch.bfloat16, torch.float32)]
+        cases += [(shape, dtype, body) for shape in GENERAL
+                  for dtype, body in bodies]
+        cases += [(shape, dtype, body, 1) for shape in GENERAL_UNALIGNED
+                  for dtype, body in bodies]
+        cases += [(shape, torch.bfloat16, "unaligned") + ((off,) if off else ())
+                  for shape, off in UNALIGNED + UNALIGNED_TIMING]
     main_err = {}
     for shape, dtype, body, *offset in cases:
         q, k, v = make_qkv(*shape, dtype, gen, *offset)
@@ -569,19 +594,15 @@ def check_kernels(A, cases=None):
                 and max(e[1] for e in bwd) <= tol):
             raise AssertionError(f"the {body} body disagrees with its twin "
                                  f"at {shape} {dtype}{view}")
-        if offset:
-            continue
-        if shape == DEIT_S and body == "resident" \
-                or shape == STREAMING[0] and body == "streaming" \
-                or shape == DEIT_S and body == "general" \
-                and dtype == torch.float32:
-            tag = "" if body == "resident" else "_" + body
-            main_err["attention_fwd" + tag] = fwd[0]
-            main_err["attention_bwd" + tag] = max(e[0] for e in bwd)
-        if cases_given and body == "general" and dtype == torch.bfloat16:
-            main_err[shape, "attention_fwd_general"] = fwd[0]
-            main_err[shape, "attention_bwd_general"] = max(e[0] for e in bwd)
-    return main_err
+        at = (shape, offset[0] if offset else 0)
+        main = {"resident": (DEIT_S, 0), "streaming": (STREAMING[0], 0),
+                "general": (DEIT_S, 0), "unaligned": UNALIGNED_TIMING[0]}
+        tag = "" if body == "resident" else "_" + body
+        for key in ((at,) if body == "unaligned" else ()) \
+                + (() if cases_given or at != main[body] else (None,)):
+            main_err[key, "attention_fwd" + tag] = fwd[0]
+            main_err[key, "attention_bwd" + tag] = max(e[0] for e in bwd)
+    return {k[1] if k[0] is None else k: e for k, e in main_err.items()}
 
 
 # the streaming body's repeat and graph-replay checks (phase 2): DeiT-S at
@@ -635,9 +656,13 @@ def check_streaming_repeats(A):
 
 
 def time_kernels(A):
-    """Phase 3: ms of both bodies of each kernel, the twin and SDPA at
-    batch 256, bf16, on this one card; the bodies in turns (general,
-    resident, resident, general), each figure the mean of its two turns."""
+    """Phase 3: ms of the resident and the unaligned bodies of each kernel,
+    the twin and SDPA at batch 256, bf16, on this one card; the bodies in
+    turns (unaligned, resident, resident, unaligned), each figure the mean
+    of its two turns. The resident body must be faster than the unaligned
+    one, or within twice its time (a guard that the choice of body holds:
+    the unaligned body is built for the shapes the resident one cannot
+    take, not to lose to it)."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -669,11 +694,11 @@ def time_kernels(A):
     out = {}
     for name, call in calls.items():
         turns = [(body, cuda_time_ms(lambda: call(body))) for body in
-                 ("general", "resident", "resident", "general")]
+                 ("unaligned", "resident", "resident", "unaligned")]
         ms = {body: sum(t for b, t in turns if b == body) / 2
-              for body in ("general", "resident")}
+              for body in ("unaligned", "resident")}
         dev = {body: device_time_ms(lambda: call(body))
-               for body in ("general", "resident")}
+               for body in ("unaligned", "resident")}
         t_bytes = bytes_[name] / HBM_BYTES_PER_S * 1e3
         t_ops = flops[name] / BF16_FLOPS * 1e3
         shared = dict(plain_ms=cuda_time_ms(plain[name]),
@@ -684,20 +709,19 @@ def time_kernels(A):
                       bound_by="bytes" if t_bytes >= t_ops else "operations")
         out[name] = dict(ms=ms["resident"], device_ms=dev["resident"],
                          **shared)
-        out[name + "_general"] = dict(ms=ms["general"],
-                                      device_ms=dev["general"], **shared)
         log(f"timing {name} B={B} bf16: turns " +
             ", ".join(f"{b} {t:.4f}" for b, t in turns) + f" ms; resident "
-            f"{ms['resident']:.4f} ms is {ms['general'] / ms['resident']:.2f}x "
-            f"faster than general {ms['general']:.4f} ms; plain "
+            f"{ms['resident']:.4f} ms is "
+            f"{ms['unaligned'] / ms['resident']:.2f}x faster than unaligned "
+            f"{ms['unaligned']:.4f} ms; plain "
             f"{shared['plain_ms']:.4f} ms, sdpa {shared['library_ms']:.4f} "
             f"ms, bound {shared['bound_ms']:.4f} ms ({shared['bound_by']}); "
-            f"device time: resident {dev['resident']:.4f}, general "
-            f"{dev['general']:.4f}, plain {shared['plain_device_ms']:.4f}, "
+            f"device time: resident {dev['resident']:.4f}, unaligned "
+            f"{dev['unaligned']:.4f}, plain {shared['plain_device_ms']:.4f}, "
             f"sdpa {shared['library_device_ms']:.4f} ms")
-        if ms["resident"] >= ms["general"]:
-            raise AssertionError(f"{name}: the resident body is not faster "
-                                 f"than the general one")
+        if ms["resident"] >= 2 * ms["unaligned"]:
+            raise AssertionError(f"{name}: the resident body takes more than "
+                                 f"twice the unaligned body's time")
     # the search step's own batch in phase 5
     q, k, v = make_qkv(*DEIT_S, torch.bfloat16, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -711,8 +735,9 @@ def time_kernels(A):
 
 def time_subnet_shapes(A):
     """Phase 3, continued: each attention shape of the lifecycle's subnet,
-    forward and backward, bf16, at batch 256 (the bench's): both bodies in
-    turns (general asked for by name), the plain twin and SDPA, beside the
+    forward and backward, bf16, at batch 256 (the bench's): the resident
+    and the unaligned bodies in turns (the unaligned one asked for by
+    name), the plain twin and SDPA, beside the
     bound, each also as device time; the serving body also at batch 64
     (phase 6's)."""
     import torch
@@ -727,7 +752,7 @@ def time_subnet_shapes(A):
                              device="cuda").to(torch.bfloat16)
             o, lse = A.attention_fwd(q, k, v)
             calls = {}
-            for b in ("resident", "general"):
+            for b in ("resident", "unaligned"):
                 calls["fwd_" + b] = lambda b=b: A.attention_fwd(q, k, v,
                                                                 body=b)
                 calls["bwd_" + b] = lambda b=b: A.attention_bwd(
@@ -763,9 +788,9 @@ def time_subnet_shapes(A):
                     so, (qg, kg, vg), sdo, retain_graph=True))
             for n in ("fwd", "bwd"):
                 turns = [(b, cuda_time_ms(calls[f"{n}_{b}"], iters=10))
-                         for b in ("general", "resident", "resident",
-                                   "general")]
-                for b in ("resident", "general"):
+                         for b in ("unaligned", "resident", "resident",
+                                   "unaligned")]
+                for b in ("resident", "unaligned"):
                     row[f"{n}_{b}_ms"] = sum(t for x, t in turns
                                              if x == b) / 2
                 for b in ("plain", "sdpa"):
@@ -780,7 +805,7 @@ def time_subnet_shapes(A):
                     f"{n} " + ", ".join(
                         f"{b} {row[f'{n}_{b}_ms']:.4f} "
                         f"({row[f'{n}_{b}_device_ms']:.4f})"
-                        for b in ("resident", "general", "plain", "sdpa"))
+                        for b in ("resident", "unaligned", "plain", "sdpa"))
                     + f", bound {row[n + '_bound_ms']:.4f}"
                     for n in ("fwd", "bwd")))
     return rows
@@ -788,13 +813,12 @@ def time_subnet_shapes(A):
 
 def time_streaming(A):
     """Phase 3, continued: at each shape of STREAM_TIMING, bf16, the
-    general and the streaming bodies of each kernel in turns (general,
-    streaming, streaming, general; each figure the mean of its two turns),
+    unaligned and the streaming bodies of each kernel in turns (unaligned,
+    streaming, streaming, unaligned; each figure the mean of its two turns),
     the plain twin and SDPA, each also as device time, beside the bytes
     and the operations bounds; for the backward also the streaming design's
     own floor (it computes 14 B H N² d flops for the math's 10). Returns
-    the rows and, at the first shape, the kernels' JSON fields of both
-    bodies."""
+    the rows and, at the first shape, the streaming kernels' JSON fields."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -810,7 +834,7 @@ def time_streaming(A):
         so = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
         sdo = do.transpose(1, 2)
         calls = {}
-        for b in ("streaming", "general"):
+        for b in ("streaming", "unaligned"):
             calls["fwd_" + b] = lambda b=b: A.attention_fwd(q, k, v, body=b)
             calls["bwd_" + b] = lambda b=b: A.attention_bwd(
                 q, k, v, o, lse, do, body=b)
@@ -833,9 +857,9 @@ def time_streaming(A):
                         f"{n}_bound_by": "bytes" if t_bytes >= t_ops
                         else "operations"})
             turns = [(b, cuda_time_ms(calls[f"{n}_{b}"], iters=10))
-                     for b in ("general", "streaming", "streaming",
-                               "general")]
-            for b in ("streaming", "general"):
+                     for b in ("unaligned", "streaming", "streaming",
+                               "unaligned")]
+            for b in ("streaming", "unaligned"):
                 row[f"{n}_{b}_ms"] = sum(t for x, t in turns if x == b) / 2
             for b in ("plain", "sdpa"):
                 row[f"{n}_{b}_ms"] = cuda_time_ms(calls[f"{n}_{b}"],
@@ -848,7 +872,7 @@ def time_streaming(A):
             f"{n} " + ", ".join(
                 f"{b} {row[f'{n}_{b}_ms']:.4f} "
                 f"({row[f'{n}_{b}_device_ms']:.4f})"
-                for b in ("streaming", "general", "plain", "sdpa"))
+                for b in ("streaming", "unaligned", "plain", "sdpa"))
             + f", bound {row[n + '_bound_ms']:.4f} ({row[n + '_bound_by']}; "
             f"bytes {row[n + '_bytes_bound_ms']:.4f}, operations "
             f"{row[n + '_ops_bound_ms']:.4f})" for n in ("fwd", "bwd"))
@@ -862,20 +886,19 @@ def time_streaming(A):
         if (B, N, H, d) != STREAM_TIMING[0]:
             continue
         for n in ("fwd", "bwd"):
-            if row[f"{n}_streaming_ms"] >= row[f"{n}_general_ms"]:
+            if row[f"{n}_streaming_ms"] >= row[f"{n}_unaligned_ms"]:
                 raise AssertionError(f"attention_{n} at {(B, N, H, d)}: the "
                                      f"streaming body is not faster than "
-                                     f"the general one")
-            for b in ("streaming", "general"):
-                fields[f"attention_{n}_{b}"] = dict(
-                    shape=row["shape"], ms=row[f"{n}_{b}_ms"],
-                    device_ms=row[f"{n}_{b}_device_ms"],
-                    plain_ms=row[f"{n}_plain_ms"],
-                    library_ms=row[f"{n}_sdpa_ms"],
-                    plain_device_ms=row[f"{n}_plain_device_ms"],
-                    library_device_ms=row[f"{n}_sdpa_device_ms"],
-                    bound_ms=row[f"{n}_bound_ms"],
-                    bound_by=row[f"{n}_bound_by"])
+                                     f"the unaligned one")
+            fields[f"attention_{n}_streaming"] = dict(
+                shape=row["shape"], ms=row[f"{n}_streaming_ms"],
+                device_ms=row[f"{n}_streaming_device_ms"],
+                plain_ms=row[f"{n}_plain_ms"],
+                library_ms=row[f"{n}_sdpa_ms"],
+                plain_device_ms=row[f"{n}_plain_device_ms"],
+                library_device_ms=row[f"{n}_sdpa_device_ms"],
+                bound_ms=row[f"{n}_bound_ms"],
+                bound_by=row[f"{n}_bound_by"])
         fields["attention_bwd_streaming"]["design_floor_ms"] = \
             row["bwd_design_floor_ms"]
     return rows, fields
@@ -949,6 +972,80 @@ def time_vit_family(A):
                   f"{(B, N, H, d)} bf16, {body} body")
         rows.append(row)
     return rows
+
+
+def time_unaligned(A, shapes, errs, what="phase 3"):
+    """Phase 3, continued (and phase 15 at the story's shapes): the
+    unaligned body at each (shape, offset in elements) of `shapes`, bf16,
+    by CUDA events and as device time, beside the plain twin, SDPA and the
+    bound (bytes at the HBM rate, operations at the dense bf16 peak), with
+    the kernels' max abs errors at the shape from `check_kernels`
+    (`errs`). Returns the rows."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for (B, N, H, d), off in shapes:
+        q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen, off)
+        do = torch.randn(q.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        row = dict(shape=[B, N, H, d], offset=off, body="unaligned",
+                   dtype="bfloat16")
+        for n in ("fwd", "bwd"):
+            row[f"{n}_max_abs_err"] = errs[((B, N, H, d), off),
+                                          f"attention_{n}_unaligned"]
+        _bounds(row, B, N, H, d, 2, BF16_FLOPS)
+        _time_row(row, _attention_calls(A, q, k, v, do, "unaligned"),
+                  f"{(B, N, H, d)} bf16{f' {off} element in' if off else ''}"
+                  f", unaligned body ({what})")
+        rows.append(row)
+    return rows
+
+
+# the shapes (and offsets) at which `time_body_worker` times each body
+BODY_TIMING = {"resident": [(TIMING, 0)],
+               "streaming": [(STREAM_TIMING[0], 0)]}
+
+
+def time_body_worker(body, root=None):
+    """`python3 chip_smoke.py --time-body BODY [ROOT]`: the forward and the
+    backward of one attention body, bf16, at its shapes in BODY_TIMING (any
+    other name at UNALIGNED_TIMING's), by CUDA events and as device time,
+    beside SDPA and the bound, one JSON line a shape. With ROOT it loads
+    `ofb_tpu_torch` from that checkout (an older commit unpacked beside this
+    one, where `general` is the bf16 body that `unaligned` replaced), so
+    that two versions of a body are timed on one card: run them in turns
+    (old, new, new, old), a process each."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root) if root else
+                    os.path.dirname(os.path.abspath(__file__)))
+    from ofb_tpu_torch.ops import attention as A
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke --time-body: no CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for (B, N, H, d), off in BODY_TIMING.get(body, UNALIGNED_TIMING):
+        q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen, off)
+        do = torch.randn(q.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        row = dict(root=os.path.abspath(A.__file__), body=body,
+                   shape=[B, N, H, d], offset=off)
+        _bounds(row, B, N, H, d, 2, BF16_FLOPS)
+        calls = _attention_calls(A, q, k, v, do, body)
+        for key in ("fwd_kernel", "bwd_kernel", "fwd_sdpa", "bwd_sdpa"):
+            row[key + "_ms"] = cuda_time_ms(calls[key])
+            row[key + "_device_ms"] = device_time_ms(calls[key])
+        print(json.dumps(row), flush=True)
+
+
+def _kernel_fields(row, n):
+    """One kernel's fields (n: "fwd" or "bwd") of a `_time_row` row, under
+    the names of the kernels' JSON line."""
+    names = {"kernel_ms": "ms", "kernel_device_ms": "device_ms",
+             "sdpa_ms": "library_ms", "sdpa_device_ms": "library_device_ms"}
+    out = {k: row[k] for k in ("shape", "offset") if k in row}
+    for k, v in row.items():
+        if k.startswith(n + "_"):
+            out[names.get(k[len(n) + 1:], k[len(n) + 1:])] = v
+    return out
 
 
 def time_general_fp32(A):
@@ -1974,7 +2071,8 @@ def run_vit_family(A, card, root):
     its best for each of VIT_CLI, then one eval batch of each of VIT_EVAL
     and its fp32 logits and gradients on the card against the CPU's at 2
     images. Every bf16 run's attention launches, counted from 0, on the
-    body VIT_SHAPES names, none on the general body. Returns the launches
+    body VIT_SHAPES names, none on the unaligned or the general body.
+    Returns the launches
     of the bf16 runs and, apart, of the fp32 comparisons (the general
     body's)."""
     import torch
@@ -2068,9 +2166,10 @@ def run_vit_family(A, card, root):
         torch.cuda.empty_cache()
     log(f"vit family: launches of the bf16 runs {totals}; of the fp32 "
         f"comparisons {fp32}")
-    if any(n for k, n in totals.items() if k.endswith("_general")):
-        raise AssertionError(f"a bf16 run of phase 10 launched the general "
-                             f"body: {totals}")
+    if any(n for k, n in totals.items()
+           if k.endswith("_general") or k.endswith("_unaligned")):
+        raise AssertionError(f"a bf16 run of phase 10 launched the unaligned "
+                             f"or the general body: {totals}")
     return totals, fp32
 
 
@@ -3653,31 +3752,6 @@ def _positive(what, values):
         raise AssertionError(f"15 {what}: not finite and positive: {bad}")
 
 
-def time_general_bf16(A, shapes):
-    """Phase 15, continued: the general body in bf16 at the attention
-    shapes (B, N, H, d) through which the story's exported subnet sent it:
-    first held against its fp32 twin at TOL["bfloat16"] (check_kernels),
-    then timed beside the twin, SDPA and the bf16 bound (bytes at the HBM
-    rate, operations at the dense bf16 peak: the body runs WMMA)."""
-    import torch
-    errs = check_kernels(A, [(s, torch.bfloat16, "general") for s in shapes])
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    rows = []
-    for B, N, H, d in shapes:
-        q, k, v = make_qkv(B, N, H, d, torch.bfloat16, gen)
-        do = torch.randn(q.shape, generator=gen,
-                         device="cuda").to(torch.bfloat16)
-        row = dict(shape=[B, N, H, d], body="general", dtype="bfloat16")
-        for n in ("fwd", "bwd"):
-            row[f"{n}_max_abs_err"] = errs[(B, N, H, d),
-                                          f"attention_{n}_general"]
-        _bounds(row, B, N, H, d, 2, BF16_FLOPS)
-        _time_row(row, _attention_calls(A, q, k, v, do, "general"),
-                  f"{(B, N, H, d)} bf16, general body (the story's)")
-        rows.append(row)
-    return rows
-
-
 def run_tools(A, card, root):
     """Phase 15: the performance tools, the examples and `dryrun.entry`,
     each through its `main(argv)` in this process (kpad_probe also once as
@@ -3686,8 +3760,8 @@ def run_tools(A, card, root):
     kpad_probe (its shapes), data_bench (an ImageFolder of 256 JPEGs),
     minimal_search, compression_story (its default lengths) and entry().
     Each one's attention launches are counted from 0. Returns (the
-    launches of the phase, the general body's bf16 rows, where the story
-    launched it)."""
+    launches of the phase, the unaligned body's rows at the story's
+    shapes, where the story launched it)."""
     import torch
     from ofb_tpu_torch import dryrun
     from ofb_tpu_torch.examples import compression_story, minimal_search
@@ -3785,16 +3859,17 @@ def run_tools(A, card, root):
               for _, d, _ in story["blocks"]]
     shapes = sorted({(128, N, h, d) for h, d, _ in story["blocks"]
                      if A.attention_body(N, d, torch.bfloat16).name
-                     == "general"})
+                     == "unaligned"})
     steps, ft = STORY_STEPS
     depth = compression_story.CFG["depth"]
-    n_gen, n_res = bodies.count("general"), bodies.count("resident")
+    n_una, n_res = bodies.count("unaligned"), bodies.count("resident")
     want = {"attention_fwd": {"resident": steps * depth + (
         steps // 300 + 1) * depth + (ft + 2) * n_res, "streaming": 0,
-        "general": (ft + 2) * n_gen},
+        "unaligned": (ft + 2) * n_una, "general": 0},
         "attention_bwd": {"resident": steps * depth + ft * n_res,
-                          "streaming": 0, "general": ft * n_gen}}
-    if c != want or n_gen + n_res != depth:
+                          "streaming": 0, "unaligned": ft * n_una,
+                          "general": 0}}
+    if c != want or n_una + n_res != depth:
         raise AssertionError(f"15 compression_story: launches {c}, expected "
                              f"{want} (subnet bodies {bodies})")
     log(f"  compression_story: {story_s:.1f} s; " + json.dumps(
@@ -3813,7 +3888,11 @@ def run_tools(A, card, root):
     log("  tools launches by kernel: " + json.dumps(totals))
     del fn, args, logits
     shutil.rmtree(work, ignore_errors=True)
-    return totals, time_general_bf16(A, shapes) if shapes else []
+    if not shapes:
+        return totals, []
+    errs = check_kernels(A, [(s, torch.bfloat16, "unaligned") for s in shapes])
+    return totals, time_unaligned(A, [(s, 0) for s in shapes], errs,
+                                  "the story's")
 
 
 def main():
@@ -3854,6 +3933,8 @@ def main():
     subnet_times = timed("3 subnet", time_subnet_shapes, A)
     stream_times, stream_fields = timed("3 streaming", time_streaming, A)
     vit_times = timed("3 vit", time_vit_family, A)
+    unaligned_times = timed("3 unaligned", time_unaligned, A,
+                            UNALIGNED_TIMING, errs)
     fp32_times, fp32_fields = timed("3 fp32", time_general_fp32, A)
     fp32 = timed("4", check_against_cpu, A)
     small = timed("4 small heads", check_small_heads, A)
@@ -3869,7 +3950,7 @@ def main():
         dist = timed("12", run_dist, A, smi, root)
         tp = timed("13", run_tp, A, smi, root)
         ladder = timed("14", run_ladder, A, smi, root)
-        tools, story_general = timed("15", run_tools, A, smi, root)
+        tools, story_unaligned = timed("15", run_tools, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"seconds by phase: {json.dumps(seconds)}")
@@ -3880,6 +3961,8 @@ def main():
             ("attention_bwd", "attention_bwd_resident.cu", 81),
             ("attention_fwd_general", "attention_fwd.cu", 68),
             ("attention_bwd_general", "attention_bwd.cu", 81),
+            ("attention_fwd_unaligned", "attention_fwd_unaligned.cu", 68),
+            ("attention_bwd_unaligned", "attention_bwd_unaligned.cu", 81),
             ("attention_fwd_streaming", "attention_fwd_streaming.cu", 115),
             ("attention_bwd_streaming", "attention_bwd_streaming.cu", 127)):
         phases = dict(launches_fp32=fp32[name] + small[name]
@@ -3893,22 +3976,19 @@ def main():
                       launches_ladder=ladder[name],
                       launches_tools=tools[name])
         # the streaming body's times are at 577 tokens; the general body's
-        # in fp32 at 197 tokens (its 577-token times stand beside them)
-        timed = stream_fields[name] if name.endswith("_streaming") \
-            else fp32_fields[name] if name.endswith("_general") \
-            else dict(times[name])
-        if name.endswith("_general") and story_general:
-            # the general body in bf16, one entry a shape of the story's
-            # subnet that sent it there
+        # in fp32 at 197 tokens (its 577-token times stand beside them); the
+        # unaligned body's at the first shape of UNALIGNED_TIMING, with every
+        # timed shape and the story's beside them
+        if name.endswith("_unaligned"):
             n = name.split("_")[1]
-            timed["bf16_story"] = [{
-                "shape": row["shape"], "max_abs_err": row[f"{n}_max_abs_err"],
-                "ms": row[f"{n}_kernel_ms"],
-                "device_ms": row[f"{n}_kernel_device_ms"],
-                "plain_ms": row[f"{n}_plain_ms"],
-                "library_ms": row[f"{n}_sdpa_ms"],
-                "bound_ms": row[f"{n}_bound_ms"],
-                "bound_by": row[f"{n}_bound_by"]} for row in story_general]
+            timed = _kernel_fields(unaligned_times[0], n)
+            del timed["max_abs_err"]             # errs[name], the same
+            timed["shapes"] = [_kernel_fields(r, n) for r in unaligned_times]
+            timed["story"] = [_kernel_fields(r, n) for r in story_unaligned]
+        else:
+            timed = stream_fields[name] if name.endswith("_streaming") \
+                else fp32_fields[name] if name.endswith("_general") \
+                else dict(times[name])
         kernels.append(dict(
             name=name, route="cuda", source=f"ofb_tpu_torch/csrc/{src}",
             replaces=f"{ATTN_SRC}:{line}", launches=sum(phases.values()),
@@ -3920,7 +4000,8 @@ def main():
     log(json.dumps({"attention_577": stream_times}))
     log(json.dumps({"attention_vit": vit_times}))
     log(json.dumps({"attention_fp32": fp32_times}))
-    log(json.dumps({"attention_bf16_general_story": story_general}))
+    log(json.dumps({"attention_unaligned": unaligned_times}))
+    log(json.dumps({"attention_unaligned_story": story_unaligned}))
     log("device time: profiler sessions taken as whole {whole}, taken as "
         "agreeing {agreed}, dropped {dropped}; times from queued_time_ms "
         "{queued}".format(**SESSIONS))
@@ -3933,13 +4014,16 @@ def main():
 
 
 if __name__ == "__main__":
-    # the processes of phase 12 run this file with a role
+    # the processes of phases 12 and 13 run this file with a role; so does
+    # a timing of one attention body (`time_body_worker`)
     if sys.argv[1:2] == ["--dist-step"]:
         dist_step_worker()
     elif sys.argv[1:2] == ["--dist-clis"]:
         dist_clis_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--dist-pair"]:
         dist_pair_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--time-body"]:
+        time_body_worker(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--tp-step"]:
         tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5], *sys.argv[6:7])

@@ -1,5 +1,5 @@
 // Attention backward for Hopper (sm_90a): dq, dk, dv of o = softmax(q kᵀ) v,
-// the general body, for every shape, type and view the wrapper takes.
+// the general body, fp32, for every shape and view the wrapper takes.
 //
 // Replaces the TPU kernel ofb_tpu/ops/pallas_attention.py `_bwd_kernel`
 // (launched by `_mha_bwd_pallas`, grid (B, H)). Same math, no scale inside:
@@ -9,11 +9,9 @@
 //   ds = p ⊙ (dp − rowsum(p ⊙ dp))    rounded to q's type
 //   dq = ds k,  dk = dsᵀ q            fp32 sums, outputs in the input type
 //
-// Which calls come here: as in attention_fwd.cu, every fp32 call, bf16
-// views whose rows are not 16-byte aligned and head dims that are not a
-// multiple of 8 (bf16 with aligned rows and d % 8 == 0 goes to
-// attention_bwd_resident.cu or attention_bwd_streaming.cu). Any N >= 1 and
-// any d in [1, 128].
+// Which calls come here: as in attention_fwd.cu, every fp32 call (bf16 goes
+// to attention_bwd_resident.cu, attention_bwd_streaming.cu or
+// attention_bwd_unaligned.cu). Any N >= 1 and any d in [1, 128].
 //
 // Split. The TPU kernel keeps one (batch, head) in VMEM and sums dk, dv
 // over all query rows inside it. Hopper blocks run in no order and cannot
@@ -55,8 +53,6 @@
 // 160 KB and 255 registers here, one block (4 warps) an SM, and measured
 // slower on the H100 (`probe_kernels general`, PERF.md). What holds both kernels
 // back is the forward's: shared-memory words, here 3 for every 8 FMAs.
-//
-// bf16 runs on the tensor cores (WMMA) with the same split.
 #include "attention_common.cuh"
 
 namespace ofb {
@@ -280,292 +276,6 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q,
   store_rows_f32<RM, DJ>(dv, acc_v, one, b, h, n0, a0, cg, N, H, d);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores. Same split and math; each warp owns 16 rows of
-// the block's tile. Scores are computed transposed in the dk/dv kernel
-// (warp rows = keys), so that pᵀ do and dsᵀ q are plain row-major products.
-// p enters pᵀ do rounded to bf16 (the tensor cores take bf16 operands), a
-// relative error of 2^-9 per term where the TPU kernel kept p in fp32.
-// ---------------------------------------------------------------------------
-
-template <int NJ>
-__global__ void __launch_bounds__(WTHREADS)
-attention_bwd_dq_wmma_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ o,
-                             const bf16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             float* __restrict__ delta, bf16* __restrict__ dq,
-                             int N, int H, int d, Strides sq, Strides sk,
-                             Strides sv, Strides so, Strides sdo, bool vec) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int dp = 16 * NJ, ldb = dp + 8, ldo = dp + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // 64 x ldb
-  bf16* dOs = Qs + TILE * ldb;                       // 64 x ldb
-  bf16* Ks = dOs + TILE * ldb;                       // 64 x ldb
-  bf16* Vs = Ks + TILE * ldb;                        // 64 x ldb
-  bf16* dSs = Vs + TILE * ldb;                       // 64 x LDP
-  float* Ss = reinterpret_cast<float*>(dSs + TILE * LDP);  // 64 x LDS
-  float* dPs = Ss + TILE * LDS;                      // 64 x LDS
-  float* Stage = dPs + TILE * LDS;                   // 64 x ldo
-  float* row_lse = Stage + TILE * ldo;
-  float* row_delta = row_lse + TILE;
-
-  const int m0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = 16 * warp + lane / 2, half = lane % 2;
-  const long long bh = static_cast<long long>(b) * H + h;
-  const bool row_in = m0 + row < N;
-
-  load_tile_bf16(Qs, ldb, q, sq, b, h, m0, N, d, dp, vec);
-  load_tile_bf16(dOs, ldb, dout, sdo, b, h, m0, N, d, dp, vec);
-  __syncthreads();
-  {  // delta = rowsum(do ⊙ o), two lanes a row
-    float acc = 0.f;
-    if (row_in) {
-      const bf16* orow = o + b * so.b + (m0 + row) * so.n + h * so.h;
-      for (int c = half; c < d; c += 2)
-        acc += __bfloat162float(dOs[row * ldb + c]) * __bfloat162float(orow[c]);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      row_delta[row] = acc;
-      row_lse[row] = row_in ? lse[bh * N + m0 + row] : 0.f;
-      if (row_in) delta[bh * N + m0 + row] = acc;
-    }
-  }
-  __syncwarp();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int n0 = 0; n0 < N; n0 += TILE) {
-    __syncthreads();
-    load_tile_bf16(Ks, ldb, k, sk, b, h, n0, N, d, dp, vec);
-    load_tile_bf16(Vs, ldb, v, sv, b, h, n0, N, d, dp, vec);
-    __syncthreads();
-    for (int j = 0; j < TILE / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s, dpf;
-      wmma::fill_fragment(s, 0.f);
-      wmma::fill_fragment(dpf, 0.f);
-      for (int kk = 0; kk < dp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + 16 * warp * ldb + kk, ldb);
-        wmma::load_matrix_sync(fb, Ks + 16 * j * ldb + kk, ldb);
-        wmma::mma_sync(s, fa, fb, s);
-        wmma::load_matrix_sync(fa, dOs + 16 * warp * ldb + kk, ldb);
-        wmma::load_matrix_sync(fb, Vs + 16 * j * ldb + kk, ldb);
-        wmma::mma_sync(dpf, fa, fb, dpf);
-      }
-      wmma::store_matrix_sync(Ss + 16 * warp * LDS + 16 * j, s, LDS,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(dPs + 16 * warp * LDS + 16 * j, dpf, LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int c = half * 32; c < half * 32 + 32; ++c) {
-      const float p = (row_in && n0 + c < N)
-          ? expf(Ss[row * LDS + c] - row_lse[row]) : 0.f;
-      dSs[row * LDP + c] =
-          __float2bfloat16(p * (dPs[row * LDS + c] - row_delta[row]));
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      for (int kk = 0; kk < TILE; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, dSs + 16 * warp * LDP + kk, LDP);
-        wmma::load_matrix_sync(fb, Ks + kk * ldb + 16 * j, ldb);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    wmma::store_matrix_sync(Stage + 16 * warp * ldo + 16 * j, acc[j], ldo,
-                            wmma::mem_row_major);
-  __syncwarp();
-  store_rows_bf16(dq, Stage, ldo, nullptr, b, h, m0, N, H, d);
-}
-
-template <int NJ>
-__global__ void __launch_bounds__(WTHREADS)
-attention_bwd_dkdv_wmma_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
-                               const bf16* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               bf16* __restrict__ dk, bf16* __restrict__ dv,
-                               int N, int H, int d, Strides sq, Strides sk,
-                               Strides sv, Strides sdo, bool vec) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int dp = 16 * NJ, ldb = dp + 8, ldo = dp + 4;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);      // 64 x ldb
-  bf16* Vs = Ks + TILE * ldb;                        // 64 x ldb
-  bf16* Qs = Vs + TILE * ldb;                        // 64 x ldb
-  bf16* dOs = Qs + TILE * ldb;                       // 64 x ldb
-  bf16* Pt = dOs + TILE * ldb;                       // 64 keys x LDP
-  bf16* dSt = Pt + TILE * LDP;                       // 64 keys x LDP
-  float* St = reinterpret_cast<float*>(dSt + TILE * LDP);  // 64 x LDS
-  float* dPt = St + TILE * LDS;                      // 64 x LDS
-  float* Stage = dPt + TILE * LDS;                   // 64 x ldo
-  float* col_lse = Stage + TILE * ldo;
-  float* col_delta = col_lse + TILE;
-
-  const int n0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int krow = 16 * warp + lane / 2, half = lane % 2;
-  const long long bh = static_cast<long long>(b) * H + h;
-  const bool key_in = n0 + krow < N;
-
-  load_tile_bf16(Ks, ldb, k, sk, b, h, n0, N, d, dp, vec);
-  load_tile_bf16(Vs, ldb, v, sv, b, h, n0, N, d, dp, vec);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_k[NJ],
-      acc_v[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    wmma::fill_fragment(acc_k[j], 0.f);
-    wmma::fill_fragment(acc_v[j], 0.f);
-  }
-
-  for (int m0 = 0; m0 < N; m0 += TILE) {
-    __syncthreads();
-    load_tile_bf16(Qs, ldb, q, sq, b, h, m0, N, d, dp, vec);
-    load_tile_bf16(dOs, ldb, dout, sdo, b, h, m0, N, d, dp, vec);
-    if (threadIdx.x < TILE) {
-      const int n = m0 + threadIdx.x;
-      col_lse[threadIdx.x] = (n < N) ? lse[bh * N + n] : 0.f;
-      col_delta[threadIdx.x] = (n < N) ? delta[bh * N + n] : 0.f;
-    }
-    __syncthreads();
-    // sᵀ = k qᵀ and dpᵀ = v doᵀ for the warp's 16 keys and 64 queries
-    for (int j = 0; j < TILE / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s, dpf;
-      wmma::fill_fragment(s, 0.f);
-      wmma::fill_fragment(dpf, 0.f);
-      for (int kk = 0; kk < dp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Ks + 16 * warp * ldb + kk, ldb);
-        wmma::load_matrix_sync(fb, Qs + 16 * j * ldb + kk, ldb);
-        wmma::mma_sync(s, fa, fb, s);
-        wmma::load_matrix_sync(fa, Vs + 16 * warp * ldb + kk, ldb);
-        wmma::load_matrix_sync(fb, dOs + 16 * j * ldb + kk, ldb);
-        wmma::mma_sync(dpf, fa, fb, dpf);
-      }
-      wmma::store_matrix_sync(St + 16 * warp * LDS + 16 * j, s, LDS,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(dPt + 16 * warp * LDS + 16 * j, dpf, LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int c = half * 32; c < half * 32 + 32; ++c) {
-      const float p = (key_in && m0 + c < N)
-          ? expf(St[krow * LDS + c] - col_lse[c]) : 0.f;
-      Pt[krow * LDP + c] = __float2bfloat16(p);
-      dSt[krow * LDP + c] =
-          __float2bfloat16(p * (dPt[krow * LDS + c] - col_delta[c]));
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      for (int kk = 0; kk < TILE; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Pt + 16 * warp * LDP + kk, LDP);
-        wmma::load_matrix_sync(fb, dOs + kk * ldb + 16 * j, ldb);
-        wmma::mma_sync(acc_v[j], fa, fb, acc_v[j]);
-        wmma::load_matrix_sync(fa, dSt + 16 * warp * LDP + kk, LDP);
-        wmma::load_matrix_sync(fb, Qs + kk * ldb + 16 * j, ldb);
-        wmma::mma_sync(acc_k[j], fa, fb, acc_k[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    wmma::store_matrix_sync(Stage + 16 * warp * ldo + 16 * j, acc_k[j], ldo,
-                            wmma::mem_row_major);
-  __syncwarp();
-  store_rows_bf16(dk, Stage, ldo, nullptr, b, h, n0, N, H, d);
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    wmma::store_matrix_sync(Stage + 16 * warp * ldo + 16 * j, acc_v[j], ldo,
-                            wmma::mem_row_major);
-  __syncwarp();
-  store_rows_bf16(dv, Stage, ldo, nullptr, b, h, n0, N, H, d);
-}
-
-// NJ = head dim / 16, rounded up: the accumulator fragments a warp holds
-// per output (compile-time, so they stay in registers).
-template <int NJ>
-int launch_bwd_bf16(const void* q, const void* k, const void* v,
-                    const void* o, const void* dout, const void* lse,
-                    void* delta, void* dq, void* dk, void* dv, int B, int N,
-                    int H, int d, const long long* st, cudaStream_t stream) {
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
-      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]},
-      sdo{st[12], st[13], st[14]};
-  const void* ptrs[5] = {q, k, v, o, dout};
-  const bool vec = vec_ok(ptrs, st, 5, d, 8);
-  const int dp = 16 * NJ;
-  const dim3 grid((N + TILE - 1) / TILE, H, B);
-  const size_t fp = sizeof(float) * (2 * TILE * LDS + TILE * (dp + 4) + 2 * TILE);
-
-  const size_t smem_dq = sizeof(bf16) * (4 * TILE * (dp + 8) + TILE * LDP) + fp;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_wmma_kernel<NJ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_dq));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_wmma_kernel<NJ><<<grid, WTHREADS, smem_dq, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf16*>(dq), N, H, d, sq, sk,
-      sv, so, sdo, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_kv =
-      sizeof(bf16) * (4 * TILE * (dp + 8) + 2 * TILE * LDP) + fp;
-  err = cudaFuncSetAttribute(attention_bwd_dkdv_wmma_kernel<NJ>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_kv));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_wmma_kernel<NJ><<<grid, WTHREADS, smem_kv, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, H, d, sq, sk, sv,
-      sdo, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_bwd_bf16_any(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, const void* lse,
-                        void* delta, void* dq, void* dk, void* dv, int B,
-                        int N, int H, int d, const long long* st,
-                        cudaStream_t stream) {
-#define OFB_BWD_NJ(nj)                                                      \
-  case nj:                                                                  \
-    return launch_bwd_bf16<nj>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, \
-                               N, H, d, st, stream);
-  switch (pad16(d) / 16) {
-    OFB_BWD_NJ(1) OFB_BWD_NJ(2) OFB_BWD_NJ(3) OFB_BWD_NJ(4)
-    OFB_BWD_NJ(5) OFB_BWD_NJ(6) OFB_BWD_NJ(7) OFB_BWD_NJ(8)
-  }
-#undef OFB_BWD_NJ
-  return -1;
-}
-
 template <int RM, int DJ, int NW, int MINB>
 int launch_bwd_f32_t(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* lse,
@@ -576,7 +286,7 @@ int launch_bwd_f32_t(const void* q, const void* k, const void* v,
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]},
       sdo{st[12], st[13], st[14]};
   const void* ptrs[5] = {q, k, v, o, dout};
-  const bool vec = vec_ok(ptrs, st, 5, d, 4);
+  const bool vec = vec_ok(ptrs, st, 5, d);
   const dim3 grid((N + BM - 1) / BM, H, B);
 
   const size_t smem_dq = f32_smem_dq(32 * DJ, BM);
@@ -629,23 +339,18 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
 
 }  // namespace ofb
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 15 element strides, (batch,
-// token, head) for q, k, v, o, do. lse and delta are contiguous (B, H, N)
-// fp32 (delta is scratch the call fills); dq, dk, dv are contiguous
-// (B, N, H, d). Returns cudaGetLastError() after the launches.
-extern "C" int ofb_attention_bwd(int dtype, const void* q, const void* k,
-                                 const void* v, const void* o,
-                                 const void* dout, const void* lse,
-                                 void* delta, void* dq, void* dk, void* dv,
-                                 int B, int N, int H, int d,
-                                 const long long* strides, void* stream) {
+// fp32 only. strides: 15 element strides, (batch, token, head) for q, k, v,
+// o, do. lse and delta are contiguous (B, H, N) fp32 (delta is scratch the
+// call fills); dq, dk, dv are contiguous (B, N, H, d). Returns -1 for a
+// head dim outside [1, 128], else cudaGetLastError() after the launches.
+extern "C" int ofb_attention_bwd(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* delta, void* dq,
+                                 void* dk, void* dv, int B, int N, int H,
+                                 int d, const long long* strides,
+                                 void* stream) {
   if (d < 1 || d > ofb::DMAX) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return ofb::launch_bwd_f32(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                N, H, d, strides, s);
-  if (dtype == 1)
-    return ofb::launch_bwd_bf16_any(q, k, v, o, dout, lse, delta, dq, dk,
-                                    dv, B, N, H, d, strides, s);
-  return -1;
+  return ofb::launch_bwd_f32(q, k, v, o, dout, lse, delta, dq, dk, dv, B, N,
+                             H, d, strides,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,5 @@
 // Shared pieces of the general attention body (attention_fwd.cu,
-// attention_bwd.cu): the fp32 path on the CUDA cores and the bf16 path on
-// the tensor cores (WMMA).
+// attention_bwd.cu): fp32 on the CUDA cores.
 //
 // Layout. q, k, v, o, do are (B, N, H, d) tensors read through element
 // strides (batch, token, head); the head-dim stride is 1. On the search
@@ -10,16 +9,14 @@
 // d in [1, 128] is taken.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include "sm90.cuh"
 
 namespace ofb {
 
-constexpr int TILE = 64;         // rows of a streamed tile (both paths)
+constexpr int TILE = 64;         // rows of a streamed tile
 constexpr int DMAX = 128;        // largest head dim taken
 
 struct Strides {
@@ -260,89 +257,19 @@ inline size_t f32_smem_dkdv(int dp, int bm) {
   return f32_smem_dq(dp, bm) + sizeof(float) * 4 * TILE;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core path (WMMA 16 x 16 x 16, fp32 sums)
-//
-// Four warps a block; warp w owns rows 16w .. 16w + 15 of the block's
-// 64-row tile, so between the block-wide tile loads a warp touches only its
-// own rows and needs no more than __syncwarp. Tiles are staged in shared
-// memory as bf16 with the head dim padded with zeros to dp (a multiple of
-// 16) and a row pitch of dp + 8; scores and the other fp32 tiles have a
-// pitch of 64 + 4. Every array starts on a 128-byte boundary, and fragment
-// pointers land on 32-byte ones, as WMMA requires.
-// ---------------------------------------------------------------------------
-
-constexpr int WTHREADS = 128;    // 4 warps x 16 rows = 64
-constexpr int LDS = TILE + 4;    // fp32 pitch of a 64-column tile
-constexpr int LDP = TILE + 8;    // bf16 pitch of a 64-column tile
-
-using bf16 = __nv_bfloat16;
-
-__host__ __device__ constexpr int pad16(int d) { return (d + 15) & ~15; }
-
-// Stage rows r0 .. r0 + 63 of head h, batch b as bf16 (pitch ldb, head dim
-// zero-padded to dp); rows at or past N are zero. With vec (vec_ok: d and
-// the strides multiples of 8), every row starts on 16 bytes and is copied 8
-// elements at a time; otherwise element by element.
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, int ldb,
-                                               const bf16* src, Strides s,
-                                               int b, int h, int r0, int N,
-                                               int d, int dp, bool vec) {
-  if (vec) {
-    const int c8 = dp / 8;
-    for (int idx = threadIdx.x; idx < TILE * c8; idx += blockDim.x) {
-      const int r = idx / c8, c = (idx - r * c8) * 8;
-      const int n = r0 + r;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (n < N && c < d)
-        x = *reinterpret_cast<const uint4*>(src + b * s.b + n * s.n +
-                                            h * s.h + c);
-      *reinterpret_cast<uint4*>(dst + r * ldb + c) = x;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < TILE * dp; idx += blockDim.x) {
-      const int r = idx / dp, c = idx - r * dp;
-      const int n = r0 + r;
-      bf16 x = __float2bfloat16(0.f);
-      if (n < N && c < d) x = src[b * s.b + n * s.n + h * s.h + c];
-      dst[r * ldb + c] = x;
-    }
-  }
-}
-
-// Write the warp's 16 rows of an fp32 staging tile (pitch ld) to rows
-// r0 + 16w .. of a contiguous (B, N, H, d) bf16 tensor, times row_scale
-// (or 1 when null).
-__device__ __forceinline__ void store_rows_bf16(bf16* dst, const float* src,
-                                                int ld, const float* row_scale,
-                                                int b, int h, int r0, int N,
-                                                int H, int d) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int idx = lane; idx < 16 * d; idx += 32) {
-    const int r = 16 * warp + idx / d, c = idx % d;
-    const int n = r0 + r;
-    if (n >= N) continue;
-    const float x = src[r * ld + c] * (row_scale ? row_scale[r] : 1.f);
-    dst[((static_cast<long long>(b) * N + n) * H + h) * d + c] =
-        __float2bfloat16(x);
-  }
-}
-
-// Whether every tensor can be staged 16 bytes at a time: the head dim and
-// every stride a multiple of `per16` elements (8 bf16 or 4 fp32) and every
-// pointer on 16 bytes. Otherwise a row may start inside a 16-byte chunk, or
-// its last chunk reach past d.
-inline bool vec_ok(const void* const* ptrs, const long long* st, int n, int d,
-                   int per16) {
-  if (d % per16 != 0) return false;
+// Whether every fp32 tensor can be staged 16 bytes at a time: the head dim
+// and every stride a multiple of 4 elements and every pointer on 16 bytes.
+// Otherwise a row may start inside a 16-byte chunk, or its last chunk reach
+// past d.
+inline bool vec_ok(const void* const* ptrs, const long long* st, int n,
+                   int d) {
+  if (d % 4 != 0) return false;
   for (int i = 0; i < n; ++i) {
     if (reinterpret_cast<unsigned long long>(ptrs[i]) % 16 != 0) return false;
     for (int j = 0; j < 3; ++j)
-      if (st[3 * i + j] % per16 != 0) return false;
+      if (st[3 * i + j] % 4 != 0) return false;
   }
   return true;
 }
-
-inline size_t align128(size_t bytes) { return (bytes + 127) & ~size_t(127); }
 
 }  // namespace ofb

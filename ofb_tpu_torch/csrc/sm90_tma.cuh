@@ -181,17 +181,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// Registers an asynchronous `wgmma` reads as its A operand stay allocated to
-// it until this point (put after the wait that retires the product): the
-// compiler sees them read and written here.
-template <int K>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[K][4]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
 // An accumulator of 64 x DP: the panel's 64 columns and the tail's TW.
 template <int TW>
 struct Acc {

@@ -7,7 +7,7 @@ configs, seeds (as torch generators), sequence and printed lines.
 
 The exported blocks have heterogeneous per-block dims, e.g. ((2, 24, 64),
 (2, 20, 112), (2, 24, 112)): heads, head dim, MLP width. Head dims that
-are not a multiple of 8 run, in bf16, through the general attention body.
+are not a multiple of 8 run, in bf16, through the unaligned attention body.
 
 Run:  python -m ofb_tpu_torch.examples.compression_story [--steps 1500]
           [--finetune-steps 600] [--device cpu]

@@ -14,7 +14,7 @@ plain twins `attention_fwd_reference` / `attention_bwd_reference`, which
 repeat the kernels' arithmetic. Each wrapper counts its launches in
 `.launches`, and per body in `.by_body`.
 
-Three kernel bodies, all hand-written. `resident` (csrc/*_resident.cu)
+Four kernel bodies, all hand-written. `resident` (csrc/*_resident.cu)
 keeps a whole head's K and V (or Q and dO) in shared memory and the scores
 in `wgmma` registers; it takes bf16, up to 256 tokens, head dims that are a
 multiple of 8 up to 128 (8 * odd ones, such as the 24, 40 and 56 of
@@ -27,16 +27,21 @@ by TMA through an mbarrier ring, and two consumer warpgroups run `wgmma`
 takes what the resident body takes at any token count and serves more than
 256 tokens (DeiT at 384 pixels: 577). Its tensor maps are encoded at every
 call from the call's own pointers through the driver's
-cuTensorMapEncodeTiled; a refused map raises.
-`general` (csrc/attention_fwd.cu, attention_bwd.cu) takes every shape,
-type and head dim in [1, 128] the wrappers accept; it serves what the other
-two do not: fp32 (FMA on the CUDA cores: register tiles of scores, 8 x 8
-in the forward and 4 x 8 in the backward, the streamed side
-double-buffered by cp.async), unaligned bf16 views and head dims that are
-not a multiple of 8 (the small heads a tiny search exports; bf16 on the
-tensor cores with WMMA). `attention_body` picks one from
-the shape, the type and the alignment alone; a body that fails to build or
-launch raises, nothing reroutes.
+cuTensorMapEncodeTiled; a refused map raises. `unaligned`
+(csrc/*_unaligned.cu) serves the bf16 calls the other two do not take:
+head dims off multiples of 8 (the search grids' 12, 20, 36, .., the heads
+a narrow-head search exports) and views whose rows do not start on 16
+bytes, at any token count and any head dim in [1, 128]. A block is one
+warpgroup on 64 rows, streaming the other side in 64-row tiles through
+`cp.async` double buffers of 16-, 8- or 4-byte copies (rows that start on
+2 bytes only are staged as the aligned 16-byte chunks that hold them and
+shifted into place in shared memory), `wgmma` products with the scores
+and the sums in registers; its backward is a dq and a dk/dv kernel. `general` (csrc/attention_fwd.cu, attention_bwd.cu) is fp32
+only, at every shape, view and head dim in [1, 128] (FMA on the CUDA
+cores: register tiles of scores, 8 x 8 in the forward and 4 x 8 in the
+backward, the streamed side double-buffered by cp.async). `attention_body`
+picks one from the shape, the type and the alignment alone; a body that
+fails to build or launch raises, nothing reroutes.
 
 Layout is the model's own (B, N, H, d) on both sides. q, k, v may be
 strided views (the search step hands in views of the qkv buffer); the
@@ -51,7 +56,7 @@ from typing import NamedTuple
 
 import torch
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM = 232448                 # bytes of shared memory a Hopper block may use
 # return codes of the streaming entries beyond CUDA's (csrc/sm90_tma.cuh)
 _ENCODE_FAILED, _NO_ENCODER = 1000, 2000
@@ -126,8 +131,7 @@ def _strides(*ts):
 class Body(NamedTuple):
     """What `attention_body` decides: the kernel body, the key count its
     forward pads to, and the dynamic shared memory (bytes) its forward and
-    its two backward kernels ask for (the general body's: its fp32
-    kernels'; its bf16 WMMA kernels size their own)."""
+    its backward kernels (the larger of two) ask for."""
     name: str
     padded_keys: int
     smem_fwd: int
@@ -143,8 +147,9 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     """Which kernel body serves (N tokens, head dim d, dtype), from the
     shape, the type and the rows' 16-byte alignment alone: bf16, d a
     multiple of 8 in [8, 128] and aligned rows take the resident body for
-    1 <= N <= 256 and the streaming body above; everything else the general
-    body. The numbers repeat the arithmetic of csrc/attention_*_resident.cu
+    1 <= N <= 256 and the streaming body above; every other bf16 call the
+    unaligned body (`_unaligned_body`); fp32 the general body. The numbers
+    repeat the arithmetic of csrc/attention_*_resident.cu
     (tiles of 64 head-dim columns when d16 = 16 * ceil(d / 16) <= 64, else
     128) and csrc/attention_*_streaming.cu (`_streaming_body`); 1024 bytes
     of alignment slack.
@@ -154,11 +159,12 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     dq and a dk/dv kernel above (the resident side padded to 16). The
     streaming body's count is 64 * ceil(N / 64), the tiles its backward
     walks (its forward walks 128-key tiles, the last one narrow when it
-    holds up to 16 keys); the general body walks tiles of 64 too
-    (`_general_body`)."""
-    if dtype != torch.bfloat16 or N < 1 or d % 8 != 0 \
-            or not 8 <= d <= 128 or not aligned:
+    holds up to 16 keys); the unaligned and the general bodies walk tiles
+    of 64 too."""
+    if dtype != torch.bfloat16:
         return _general_body(N, d)
+    if N < 1 or d % 8 != 0 or not 8 <= d <= 128 or not aligned:
+        return _unaligned_body(N, d)
     dp = 64 if d <= 64 else 128                          # d16 <= 64
     tile = 64 * dp * 2                                   # 64 rows, bf16
     rows64 = 64 * -(-N // 64)                            # whole 64-row tiles
@@ -176,8 +182,27 @@ def attention_body(N: int, d: int, dtype, aligned: bool = True) -> Body:
     return Body("resident", keys, fwd, bwd)
 
 
+def _unaligned_body(N: int, d: int) -> Body:
+    """The unaligned body's shared memory (csrc/attention_*_unaligned.cu):
+    64-row tiles of DP = 64 columns (d16 = 16 * ceil(d / 16) <= 64) or 128
+    (above), bf16, and 1024 bytes of alignment slack. A streamed operand
+    holds a tile and a second slot: its next tile (rows on 16 bytes) or
+    the staging area of its next tile (64 rows of DP / 8 + 1 aligned
+    16-byte chunks; csrc/sm90.cuh `stage_rows_async`). The forward holds q
+    and streams k and v; the dq kernel holds q and do and streams k and v
+    (o passes through a k slot that the first key tile leaves free), with
+    the lse and delta of its 64 rows; the dk/dv kernel holds k and v and streams q and do, with the
+    lse and delta of two query tiles. Keys walk in tiles of 64."""
+    dp = 64 if d <= 64 else 128
+    tile = 64 * dp * 2
+    slot = max(tile, 64 * (dp // 8 + 1) * 16)
+    fwd = tile + 2 * (tile + slot) + 1024
+    bwd = 2 * tile + 2 * (tile + slot) + 4 * 64 * 4 + 1024
+    return Body("unaligned", 64 * -(-N // 64), fwd, bwd)
+
+
 def _general_body(N: int, d: int) -> Body:
-    """The general body's fp32 kernels (csrc/attention_common.cuh
+    """The general body, fp32 (csrc/attention_common.cuh
     `f32_smem_*`): fp32 tiles of DP = 32 * ceil(d / 32) columns, keys (or
     queries) streamed in tiles of 64. The forward keeps 128 query rows
     resident for DP <= 64, else 64, with k and v double-buffered and p of
@@ -228,29 +253,23 @@ def _streaming_body(keys: int, d: int) -> Body:
     return Body("streaming", keys, fwd, max(dq, dkdv))
 
 
+BODIES = ("resident", "streaming", "unaligned", "general")
+# each body's library (attention_fwd, attention_fwd_resident, ..: no suffix
+# for the general body), whose C entry is "ofb_" + its name, and the number
+# of tensor pointers the entry takes
 _ENTRIES = {
-    # library and C entry, number of tensor pointers, whether dtype leads
-    ("fwd", "general"): ("attention_fwd", "ofb_attention_fwd", 5, True),
-    ("bwd", "general"): ("attention_bwd", "ofb_attention_bwd", 10, True),
-    ("fwd", "resident"): ("attention_fwd_resident",
-                          "ofb_attention_fwd_resident", 5, False),
-    ("bwd", "resident"): ("attention_bwd_resident",
-                          "ofb_attention_bwd_resident", 10, False),
-    ("fwd", "streaming"): ("attention_fwd_streaming",
-                           "ofb_attention_fwd_streaming", 5, False),
-    ("bwd", "streaming"): ("attention_bwd_streaming",
-                           "ofb_attention_bwd_streaming", 10, False),
-}
+    (which, body): ("attention_" + which + ("" if body == "general"
+                                            else "_" + body), nptr)
+    for which, nptr in (("fwd", 5), ("bwd", 10)) for body in BODIES}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(which: str, body: str):
     """The C entry of a body, its library built and loaded at first use."""
     from .cuda_build import load
-    lib, name, nptr, with_dtype = _ENTRIES[which, body]
-    fn = getattr(load(lib), name)
-    fn.argtypes = ([ctypes.c_int] if with_dtype else []) \
-        + [ctypes.c_void_p] * nptr + [ctypes.c_int] * 4 \
+    lib, nptr = _ENTRIES[which, body]
+    fn = getattr(load(lib), "ofb_" + lib)
+    fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -266,17 +285,18 @@ def _launch(wrapper, which: str, body, tensors, outs, dims):
         body = fit
     if (which, body) not in _ENTRIES:
         raise ValueError(f"no attention body {body!r}")
-    # the streaming body takes the resident body's shapes at any N
-    if body == "resident" and fit != "resident" \
-            or body == "streaming" and fit == "general":
+    # the streaming body takes the resident body's shapes at any N, the
+    # unaligned body every bf16 call, the general body every fp32 call
+    takes = {"resident": ("resident",), "streaming": ("resident", "streaming"),
+             "unaligned": ("resident", "streaming", "unaligned"),
+             "general": ("general",)}[body]
+    if fit not in takes:
         raise ValueError(f"the {body} attention body does not take shape "
                          f"{tuple(q.shape)}, {q.dtype}, strides {q.stride()}")
     st = _strides(*tensors)
     args = [t.data_ptr() for t in tensors + outs] + list(dims) + [
         ctypes.cast(st, ctypes.c_void_p),
         torch.cuda.current_stream(q.device).cuda_stream]
-    if body == "general":
-        args.insert(0, _DTYPES[q.dtype])
     rc = _entry(which, body)(*args)
     if rc == -1:
         raise ValueError(f"the {body} attention body does not take shape "
@@ -335,7 +355,7 @@ def attention_bwd(q, k, v, o, lse, do, body=None):
 def reset_launch_counts():
     for wrapper in (attention_fwd, attention_bwd):
         wrapper.launches = 0
-        wrapper.by_body = {"resident": 0, "streaming": 0, "general": 0}
+        wrapper.by_body = dict.fromkeys(BODIES, 0)
 
 
 reset_launch_counts()

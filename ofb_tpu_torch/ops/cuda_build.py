@@ -31,6 +31,8 @@ SOURCES = {
     "attention_bwd_resident": "attention_bwd_resident.cu",
     "attention_fwd_streaming": "attention_fwd_streaming.cu",
     "attention_bwd_streaming": "attention_bwd_streaming.cu",
+    "attention_fwd_unaligned": "attention_fwd_unaligned.cu",
+    "attention_bwd_unaligned": "attention_bwd_unaligned.cu",
 }
 _HEADERS = ("attention_common.cuh", "sm90.cuh", "sm90_tma.cuh")
 

@@ -1,5 +1,5 @@
-"""Probe: where the resident, the streaming and the general (fp32)
-attention kernels spend their time.
+"""Probe: where the resident, the streaming, the unaligned and the general
+(fp32) attention kernels spend their time.
 
 There is no hardware profiler to ask on every machine, so this script asks
 the kernels themselves: it builds edited copies of `csrc/` (each variant a
@@ -7,6 +7,8 @@ few exact source replacements that take work out, route it elsewhere or
 change a block's shape), and times the forward and the backward of every
 variant at its body's batch-256 shape (the resident body at the search
 step's N = 197, the streaming one at DeiT-S-384's N = 577, both bf16; the
+unaligned one at N = 197 with rows one element into wider rows, so that
+they start on 2 bytes only, and with head dim 20, rows on 8 bytes; the
 general body in fp32, the type it serves, at N = 197), each variant in a
 process of its own, two rounds. The differences between variants say
 how long the copies, each pass and the alternatives take. A replacement
@@ -15,10 +17,15 @@ cannot pass unnoticed. The streaming variants turn the knobs of its TMA /
 mbarrier / ping-pong design one at a time (ring depth, the setmaxnreg
 split, ping-pong off, the pipelining inside a warpgroup off, and at
 ViT-H/14's shape the forward's narrow last tile and the d = 80 tail off),
-and take out the forward's exponentials, products or loads.
+and take out the forward's exponentials, products or loads. The unaligned
+variants copy rows on 8 bytes by 4-byte cp.async, or stage them as rows on
+2 bytes are staged, instead of copying them by 8-byte cp.async, hold the
+backward to two blocks an SM instead of three, run the 16-byte copies of a
+ragged head dim in a runtime loop, and take out the shift of staged rows,
+or the whole pass that shifts them into place.
 
 Usage: python -m ofb_tpu_torch.probe_kernels [resident] [streaming]
-[general] (every body's variants without arguments). Needs a CUDA device and nvcc.
+[unaligned] [general] (every body's variants without arguments). Needs a CUDA device and nvcc.
 Copies and libraries go to build/ofb_tpu_torch_probe/ (git-ignored).
 Prints one line a variant and round: its name, forward ms, backward ms,
 the shape and the card.
@@ -30,13 +37,16 @@ import subprocess
 import sys
 from pathlib import Path
 
-# B, N, H, d at batch 256: DeiT-S at 224 and at 384 pixels
+# B, N, H, d at batch 256: DeiT-S at 224 and at 384 pixels; for the
+# unaligned body also the offset of its views into wider rows (elements)
 SHAPES = {"resident": (256, 197, 6, 64), "streaming": (256, 577, 6, 64),
-          "general": (256, 197, 6, 64)}
+          "unaligned": (256, 197, 6, 64, 1), "general": (256, 197, 6, 64)}
 # variants timed at another shape than their body's
 VARIANT_SHAPES = {n: (32, 257, 16, 80) for n in (
     "stream_vit_h", "stream_vit_h_no_narrow_last_tile",
-    "stream_vit_h_no_d80_tail")}
+    "stream_vit_h_no_d80_tail")} | {
+    n: (256, 197, 6, 20, 0) for n in ("unaligned_d20", "unaligned_d20_staged",
+                                      "unaligned_d20_4_byte_copies")}
 FWD = "attention_fwd_resident.cu"
 BWD = "attention_bwd_resident.cu"
 SFWD = "attention_fwd_streaming.cu"
@@ -159,6 +169,44 @@ STREAMING_VARIANTS = {
         (SFWD, "        o.template mma<KEYS>(p[kk], V, 16 * kk, t > 0 || kk > 0);",
          "        (void)V;")],
 }
+_WIDTHS = "  for (int w = 16; w > 2; w /= 2) {"
+_RAGGED_RUN = """  if constexpr (RAGGED) {
+#pragma unroll
+    for (int i = 0; i < ROWS * CPR / WG; ++i)
+      copy(threadIdx.x / CPR + i * (WG / CPR));
+  } else {
+    for (int r = threadIdx.x / CPR; r < nrows; r += blockDim.x / CPR)
+      copy(r);
+  }"""
+_RUNTIME_LOOP = """  for (int r = threadIdx.x / CPR; r < nrows; r += blockDim.x / CPR)
+    copy(r);"""
+UNALIGNED_VARIANTS = {
+    "unaligned_as_committed": [],
+    # the backward's registers held to two blocks an SM, not three
+    "unaligned_bwd_two_blocks": [("attention_bwd_unaligned.cu",
+                                  "return ks <= 4 ? 3 : 2;", "return 2;")],
+    # head dim 20, rows on 8 bytes: by 8-byte cp.async, by 4-byte ones, and
+    # staged as rows on 2 bytes are
+    "unaligned_d20": [],
+    "unaligned_d20_4_byte_copies": [("sm90.cuh", _WIDTHS, _WIDTHS.replace(
+        "w /= 2", "w /= w == 16 ? 4 : 2"))],
+    "unaligned_d20_staged": [("sm90.cuh", _WIDTHS,
+                              _WIDTHS.replace("w > 2", "w > 8"))],
+    # the 16-byte copies of a ragged head dim in one runtime loop, as the
+    # resident body's, instead of an unrolled fixed run (registers at KS = 4)
+    "unaligned_ragged_runtime_loop": [("sm90.cuh", _RAGGED_RUN, _RUNTIME_LOOP)],
+    # diagnostics, outputs wrong: the staged rows taken unshifted, and not
+    # shifted into place at all (no second barrier a tile)
+    "unaligned_no_shift": [("sm90.cuh", "      const int sh = (o & 2) * 8;",
+                            "      const int sh = 0;")],
+    "unaligned_no_unstage": [
+        ("attention_fwd_unaligned.cu", "    if (stage_k || stage_v) {",
+         "    if (false) {"),
+        ("attention_bwd_unaligned.cu", "    if (stage_k || stage_v) {",
+         "    if (false) {"),
+        ("attention_bwd_unaligned.cu", "    if (stage_q || stage_do) {",
+         "    if (false) {")],
+}
 _GFWD = "OFB_FWD_F32(2, 8, 4, 2)"       # d <= 64: RM, warps, blocks an SM
 _GBWD = "OFB_BWD_F32(2, 4, 4, 2)"
 GENERAL_VARIANTS = {
@@ -177,10 +225,11 @@ GENERAL_VARIANTS = {
 }
 BODY_VARIANTS = {"resident": RESIDENT_VARIANTS,
                  "streaming": STREAMING_VARIANTS,
+                 "unaligned": UNALIGNED_VARIANTS,
                  "general": GENERAL_VARIANTS}
-_LIBS = {"resident": ("attention_fwd_resident", "attention_bwd_resident"),
-         "streaming": ("attention_fwd_streaming", "attention_bwd_streaming"),
-         "general": ("attention_fwd", "attention_bwd")}
+_LIBS = {body: ("attention_fwd" + ("" if body == "general" else "_" + body),
+                "attention_bwd" + ("" if body == "general" else "_" + body))
+         for body in BODY_VARIANTS}
 
 
 def _use(name: str):
@@ -229,19 +278,23 @@ def _time_variant(name: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    B, N, H, d = VARIANT_SHAPES.get(name, SHAPES[body])
+    B, N, H, d, *off = VARIANT_SHAPES.get(name, SHAPES[body])
+    off = off[0] if off else 0
     dtype = torch.float32 if body == "general" else torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
-    buf = torch.randn((B, N, 3, H, d), generator=gen,
+    buf = torch.randn((B, N, 3, H, d + off), generator=gen,
                       device="cuda").to(dtype)
-    q = (buf[:, :, 0].float() * d ** -0.5).to(dtype)
-    k, v = buf[:, :, 1], buf[:, :, 2]
+    buf[:, :, 0] = (buf[:, :, 0].float() * d ** -0.5).to(dtype)
+    q, k, v = (buf[:, :, i, :, off:] for i in range(3))
+    if off == 0:
+        q = q.contiguous()
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     o, lse = A.attention_fwd(q, k, v, body=body)
     t_fwd = ms(lambda: A.attention_fwd(q, k, v, body=body))
     t_bwd = ms(lambda: A.attention_bwd(q, k, v, o, lse, do, body=body))
     print(f"{name:26s} fwd {t_fwd:.4f} ms  bwd {t_bwd:.4f} ms  "
-          f"B={B} N={N} H={H} d={d} {str(dtype)[6:]}  [{card()}]",
+          f"B={B} N={N} H={H} d={d} offset={off} {str(dtype)[6:]}  "
+          f"[{card()}]",
           flush=True)
 
 

@@ -5,10 +5,11 @@ holds the twins (forward, backward and the autograd Function around them)
 against JAX's reference path, its Pallas kernel pair in interpret mode,
 and `jax.grad` through the Pallas custom VJP, at DeiT's 197 tokens, at
 the streaming body's counts above 256 (577 = DeiT at 384 pixels) and at
-head dims that are not a multiple of 8 (4, 12, 36), which JAX's
-`fused_mha` takes and only the general body serves; and a tiny subnet with
-such heads through the dense train and eval steps against JAX's. The CUDA
-kernels themselves (three bodies: resident, streaming and general) are held
+head dims that are not a multiple of 8 (4, 12, 21, 36), which JAX's
+`fused_mha` takes and only the unaligned body (bf16) and the general body
+(fp32) serve; and a tiny subnet with such heads through the dense train and
+eval steps against JAX's. The CUDA kernels themselves (four bodies:
+resident, streaming, unaligned and general) are held
 against the same twins on the card by chip_smoke.py; here the choice
 between the bodies, the padding and the shared memory each body asks for
 are checked, since they are plain Python.
@@ -191,20 +192,25 @@ def test_cpu_path_counts_no_launch_and_bad_inputs_raise():
     (577, 24, BF16, True, "streaming"),      # its subnets' 8 * odd heads
     (1025, 120, BF16, True, "streaming"),
     (577, 64, F32, True, "general"),         # fp32 at any token count
-    (577, 64, BF16, False, "general"),       # unaligned at any token count
+    (577, 64, BF16, False, "unaligned"),     # unaligned at any token count
+    (1025, 64, BF16, False, "unaligned"),
     (197, 64, F32, True, "general"),         # fp32 stays off the tensor cores
     (197, 40, F32, True, "general"),
-    (197, 64, BF16, False, "general"),       # rows not on 16 bytes
-    (197, 24, BF16, False, "general"),       # unaligned 8 * odd views
-    (197, 56, BF16, False, "general"),
-] + [(N, d, dtype, aligned, "general")     # head dims off multiples of 8
+    (197, 64, BF16, False, "unaligned"),     # rows not on 16 bytes
+    (197, 24, BF16, False, "unaligned"),     # unaligned 8 * odd views
+    (197, 56, BF16, False, "unaligned"),
+    (197, 128, BF16, False, "unaligned"),    # the widest head, unaligned
+    (197, 1, BF16, True, "unaligned"),       # the narrowest head dim
+    (197, 127, BF16, True, "unaligned"),     # the widest off a multiple of 8
+    (197, 1, F32, True, "general"),
+] + [(N, d, dtype, aligned, "unaligned" if dtype == BF16 else "general")
      for N, d in ((197, 4), (197, 6), (197, 12), (577, 36), (17, 60),
-                  (197, 84))
+                  (197, 84))                 # head dims off multiples of 8
      for dtype in (BF16, F32) for aligned in (True, False)])
 def test_body_choice_by_shape_type_and_alignment(N, d, dtype, aligned, want):
     body = A.attention_body(N, d, dtype, aligned)
     assert body.name == want
-    if want == "general":
+    if want in ("unaligned", "general"):
         assert body.padded_keys == 64 * -(-N // 64)
         assert 0 < body.smem_fwd <= A.MAX_SMEM
         assert 0 < body.smem_bwd <= A.MAX_SMEM
@@ -293,6 +299,40 @@ def test_streaming_tail_columns(d, tail):
 
 
 @pytest.mark.parametrize("d", range(1, 129))
+def test_unaligned_shared_memory_fits_a_block(d):
+    """Every head dim the unaligned body takes, at any token count, asks
+    for no more shared memory than a Hopper block may have, and for what
+    its kernels lay out (csrc/attention_*_unaligned.cu): 64-row bf16 tiles
+    of 64 columns up to d16 = 16 * ceil(d / 16) = 64, else 128; a streamed
+    operand in a tile and a second slot, its next tile or the staging area
+    of its next tile (64 rows of DP / 8 + 1 aligned 16-byte chunks); the
+    forward's q, k and v; the dk/dv kernel's k, v, q and do with the lse and
+    delta of two query tiles (the dq kernel's q, do, k and v with those of
+    its own 64 rows take less); 1024 bytes of slack. Keys walk in tiles of
+    64. At every head dim two blocks of each kernel fit an SM's 228 KB (1
+    KB reserved a block)."""
+    dp = 64 if 16 * -(-d // 16) <= 64 else 128
+    tile, staged = 64 * dp * 2, 64 * (dp // 8 + 1) * 16
+    fwd = tile + 2 * (tile + staged) + 1024
+    bwd = 2 * tile + 2 * (tile + staged) + 4 * 64 * 4 + 1024
+    for N in (1, 17, 197, 577, 1025):
+        for aligned in (True, False):
+            body = A.attention_body(N, d, BF16, aligned)
+            if d % 8 == 0 and aligned:
+                assert body.name in ("resident", "streaming")
+                continue
+            assert body.name == "unaligned"
+            assert body.padded_keys == 64 * -(-N // 64) >= N
+            assert (body.smem_fwd, body.smem_bwd) == (fwd, bwd)
+            assert 0 < body.smem_fwd <= A.MAX_SMEM
+            assert 0 < body.smem_bwd <= A.MAX_SMEM
+            assert 2 * (body.smem_fwd + 1024) <= 228 * 1024
+            assert 2 * (body.smem_bwd + 1024) <= 228 * 1024
+    if d == 64:
+        assert (fwd, bwd) == (44032, 53248)
+
+
+@pytest.mark.parametrize("d", range(1, 129))
 def test_general_shared_memory_fits_a_block(d):
     """Every head dim the general body takes asks for no more shared memory
     than a Hopper block may have, and for what its fp32 kernels lay out
@@ -346,10 +386,12 @@ def _twins_match_jax_and_pallas(shape, seed, scale):
 
 
 @pytest.mark.parametrize("shape", [(2, 197, 2, 12), (1, 577, 2, 36),
-                                   (3, 17, 1, 4)])
+                                   (3, 17, 1, 4), (1, 577, 2, 21)])
 def test_twins_at_head_dims_off_multiples_of_8_match_jax_and_pallas(shape):
-    """Head dims that only the general body serves (a tiny search exports
-    4 .. 16): DeiT's 197 tokens, DeiT at 384 pixels, and a ragged count,
+    """Head dims that only the unaligned body (bf16) and the general body
+    (fp32) serve (a tiny search exports 4 .. 16; the search grids 12, 20,
+    36, ..): DeiT's 197 tokens, DeiT at 384 pixels at an even and at an odd
+    head dim (whose rows start on 2 bytes only), and a ragged count,
     forward and backward against JAX as above 256 tokens, fp32."""
     _twins_match_jax_and_pallas(shape, 14, 0.3)
 
@@ -377,24 +419,31 @@ def test_cpu_tensors_run_the_twins_whatever_body_is_named():
     q, k, v = (torch.from_numpy(x).to(BF16) for x in qkv(2, 197, 2, 64, seed=6))
     do = torch.from_numpy(qkv(2, 197, 2, 64, seed=7)[0]).to(BF16)
     want_o, want_lse = A.attention_fwd_reference(q, k, v)
-    for body in (None, "resident", "streaming", "general"):
+    for body in (None, "resident", "streaming", "unaligned", "general"):
         o, lse = A.attention_fwd(q, k, v, body=body)
         assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
         got = A.attention_bwd(q, k, v, o, lse, do, body=body)
         for g, w in zip(got, A.attention_bwd_reference(q, k, v, do)):
             assert torch.equal(g, w)
     for w in (A.attention_fwd, A.attention_bwd):
-        assert w.launches == 0 and w.by_body == {"resident": 0,
-                                                 "streaming": 0, "general": 0}
+        assert w.launches == 0 and w.by_body == {
+            "resident": 0, "streaming": 0, "unaligned": 0, "general": 0}
 
 
 def test_a_named_body_that_does_not_fit_raises_before_any_launch():
+    """The resident, the streaming and the unaligned bodies take no fp32,
+    the general body (fp32 only) no bf16."""
     A.reset_launch_counts()
     q, k, v = map(torch.from_numpy, qkv())               # fp32
-    for body in ("resident", "streaming"):
+    for body in ("resident", "streaming", "unaligned"):
         with pytest.raises(ValueError, match=body):
             A._launch(A.attention_fwd, "fwd", body, [q, k, v], [],
                       tuple(q.shape))
+    for t in ((q, k, v), qkv(2, 17, 3, 20)):             # resident, unaligned
+        t = [torch.as_tensor(x).to(BF16) for x in t]
+        with pytest.raises(ValueError, match="general"):
+            A._launch(A.attention_fwd, "fwd", "general", t, [],
+                      tuple(t[0].shape))
     with pytest.raises(ValueError, match="no attention body"):
         A._launch(A.attention_fwd, "fwd", "flash", [q, k, v], [],
                   tuple(q.shape))
@@ -403,9 +452,12 @@ def test_a_named_body_that_does_not_fit_raises_before_any_launch():
 
 def test_every_body_has_its_source():
     from ofb_tpu_torch.ops import cuda_build
-    for lib, entry, _, _ in A._ENTRIES.values():
+    assert {b for _, b in A._ENTRIES} == set(A.BODIES) \
+        == {"resident", "streaming", "unaligned", "general"}
+    for (which, body), (lib, _) in A._ENTRIES.items():
         src = cuda_build.CSRC / cuda_build.SOURCES[lib]
-        assert f'extern "C" int {entry}(' in src.read_text()
+        assert f'extern "C" int ofb_{lib}(' in src.read_text()
+        assert which in lib and (body in lib or body == "general")
     for header in cuda_build._HEADERS:
         assert (cuda_build.CSRC / header).is_file()
 
@@ -421,8 +473,8 @@ SMALL_HEADS = dict(img_size=32, patch_size=8, num_classes=10, embed_dim=32,
 def test_small_heads_subnet_train_and_eval_steps_match_jax():
     """The port's dense train step (2 steps, layer-decay AdamW, label
     smoothing) and eval step on that subnet against `ofb_tpu`'s, fp32, from
-    the same weights: every block's attention goes to the general body in
-    either type. Tolerances as in test_torch_port_finetune_step.py: loss
+    the same weights: every block's attention goes to the unaligned body in
+    bf16 and to the general body in fp32. Tolerances as in test_torch_port_finetune_step.py: loss
     rel 1e-5, params atol 2e-5, eval loss rel 1e-4."""
     from ofb_tpu.core import lr_decay as JL
     from ofb_tpu.core import steps as JS
@@ -437,7 +489,8 @@ def test_small_heads_subnet_train_and_eval_steps_match_jax():
     N = cfg.num_patches + cfg.num_tokens
     for i in range(cfg.depth):
         hd = cfg.block_dims(i)[1]
-        assert hd % 8 and A.attention_body(N, hd, BF16).name == "general"
+        assert hd % 8 and A.attention_body(N, hd, BF16).name == "unaligned"
+        assert A.attention_body(N, hd, F32).name == "general"
     model = ViT(cfg, generator=torch.Generator().manual_seed(0))
     # copies: to_jax's arrays may share memory with the parameters, which
     # the port's step updates in place
