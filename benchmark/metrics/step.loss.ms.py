@@ -1,0 +1,9 @@
+"""Device milliseconds a step call in the step's `loss` phase: the device
+events between the program's `ofb_mark_loss_begin` and
+`ofb_mark_loss_end` marks (`marks.py`). Nothing without marks."""
+
+from benchmark.marks import read_phase
+
+
+def read(t):
+    return read_phase(t, "loss")

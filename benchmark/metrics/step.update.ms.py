@@ -1,0 +1,9 @@
+"""Device milliseconds a step call in the step's `update` phase: the device
+events between the program's `ofb_mark_update_begin` and
+`ofb_mark_update_end` marks (`marks.py`). Nothing without marks."""
+
+from benchmark.marks import read_phase
+
+
+def read(t):
+    return read_phase(t, "update")

@@ -81,10 +81,11 @@ import time
 import torch
 
 from .models.swin import WINDOW_ATTENTION_RANGE
+from .utils.profiling import STEP_RANGES
 
 H100_BF16_PEAK = 989e12
 # the port's profiler ranges: their device-side spans are not kernels
-RANGES = (WINDOW_ATTENTION_RANGE,)
+RANGES = (WINDOW_ATTENTION_RANGE,) + STEP_RANGES
 
 
 def card() -> str:

@@ -20,6 +20,15 @@ step; one call is one optimizer update over A accumulated microbatches:
 dense ViT (an exported subnet), `make_eval_step` / `make_eval_step_dense`
 return the sums a caller averages over an epoch.
 
+The train steps name their parts as step phases
+(`utils.profiling.step_phase`), so that a profiler trace splits a call's
+time by them, a replayed CUDA graph's too: `input` (a planned step's
+iteration index, schedules and gather; the fused augment; Mixup / CutMix),
+then per microbatch `forward`, `loss` (the criteria, a teacher, the arch
+loss, the decoder weight) and `backward`, then `update` (the averages and
+their all-reduce, the gradient norm, AdamW, the masks, the EMA, the step
+counter, a planned step's output).
+
 PyTorch runs eagerly, so the steps update the state's parameters, moments,
 EMA, step counter and the optimizer's update count in place (no copy of the
 model per step) and return the same state. Randomness never has to come
@@ -35,7 +44,7 @@ takes its rows of the global batch, every random draw is the global
 batch's (`parallel.mesh.draw_rows`) and randomness handed in is the global
 microbatch's, of which the step takes this rank's rows; Mixup pairs across
 ranks; the decoder weight, the gradients and the metrics are the global
-batch's (`_accumulate`'s all-reduce). A world of N then takes the step one
+batch's (`_averaged`'s all-reduce). A world of N then takes the step one
 process takes on the concatenated batch.
 
 On a (data, model) mesh (`parallel.mesh.make_mesh`, the active one) the
@@ -76,6 +85,7 @@ from ..ops.mixup import apply_mixup, mixup_draws as draw_mixup
 from ..parallel.distributed import (all_mean_, data_group, gather_rows,
                                     model_rank_world)
 from ..parallel.mesh import draw_rows, sharded_names, this_rank_rows
+from ..utils.profiling import step_phase
 from . import losses as L
 from .optim import global_norm, named_leaves
 
@@ -173,20 +183,27 @@ def _mixed(images, labels, generator, draws, mix, *, num_classes,
 
 
 def _accumulate(leaves, A, micro):
-    """Run `micro(a)` -> (loss, metrics) and backward for a in range(A);
-    returns ({name: mean gradient}, {metric: mean}). A leaf no microbatch
-    reached gets a zero gradient (Adam still decays its moments). Under a
-    process group the gradients and metrics are then averaged over the
-    ranks of the data axis, in one flat all-reduce: every rank holds the
-    global batch's mean, as JAX's replicated step does."""
+    """Run `micro(a)` -> (loss, metrics) and backward for a in range(A),
+    the gradients summed in the leaves' `.grad`; returns {metric: sum}."""
     for p in leaves.values():
         p.grad = None
     sums: Dict[str, torch.Tensor] = {}
     for a in range(A):
         total, m = micro(a)
-        total.backward()
+        with step_phase("backward"):
+            total.backward()
         for k, v in m.items():
             sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+    return sums
+
+
+def _averaged(leaves, A, sums):
+    """({name: mean gradient}, {metric: mean}) of `_accumulate`'s A
+    microbatches. A leaf no microbatch reached gets a zero gradient (Adam
+    still decays its moments). Under a process group the gradients and
+    metrics are then averaged over the ranks of the data axis, in one flat
+    all-reduce: every rank holds the global batch's mean, as JAX's
+    replicated step does."""
     grads = dict(zip(leaves, torch._foreach_div(
         [p.grad if p.grad is not None else torch.zeros_like(p)
          for p in leaves.values()], float(A))))
@@ -253,61 +270,68 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
         if phase == "postsearch":
             # the finish_search transition turns on Mixup(0.8) / CutMix(1.0)
             # and the soft-target CE
-            images, labels = _mixed(
-                images, labels, generator, draws, scfg.mixup,
-                num_classes=mcfg.num_classes, mixup_alpha=0.8,
-                cutmix_alpha=1.0)
+            with step_phase("input"):
+                images, labels = _mixed(
+                    images, labels, generator, draws, scfg.mixup,
+                    num_classes=mcfg.num_classes, mixup_alpha=0.8,
+                    cutmix_alpha=1.0)
             soft = True
-        out = mim_forward(state.params, state.alphas, state.arch, images,
-                          mcfg, space, train=True, use_mim=use_mim,
-                          fused=fused_model, keep_ratio=keep_ratio,
-                          generator=generator, token_mask=token_mask,
-                          gate_fold=gate_fold, compute_dtype=compute_dtype)
-        if out.logits_dist is not None:
-            base = L.distilled_pair_loss(out.logits, out.logits_dist, labels,
-                                         soft_labels=soft,
-                                         smoothing=smoothing)
-            kd_logits = out.logits_dist
-        else:
-            base = L.base_criterion(out.logits, labels, soft_labels=soft,
-                                    smoothing=smoothing)
-            kd_logits = out.logits
-        if teacher_apply is not None and dcfg.distillation_type != "none":
-            # the teacher sees the images the student saw (mixed after the
-            # finish)
-            base = L.distillation_loss(
-                base, kd_logits, teacher_apply(images),
-                kind=dcfg.distillation_type, alpha=dcfg.alpha, tau=dcfg.tau)
-        metrics = {"loss_param": base}
-        total = base
-        if phase == "search":
-            arch_loss, aux = L.ofb_arch_loss(
-                state.params, state.alphas, state.arch, space, mcfg,
-                target_flops=scfg.target_flops, w_head=scfg.w_head,
-                w_mlp=scfg.w_mlp, w_patch=scfg.w_patch,
-                w_embedding=scfg.w_embedding, w_flops=scfg.w_flops,
-                entropy=scfg.entropy, var=scfg.var, norm=scfg.norm)
-            dec = out.decoder_loss
-            # dynamic decoder weight w = base / dec of the global batch
-            # (the ranks' means averaged); its gradient flows into the
-            # decoder loss only
-            pair = torch.stack([base, dec]).detach()
-            all_mean_([pair], group=data_group())
-            w_dec = torch.where(pair[1] > 0,
-                                pair[0] / pair[1].clamp_min(1e-12), 0.0)
-            total = total + arch_loss + w_dec * dec
-            metrics.update(loss_arch=arch_loss, loss_decoder=dec,
-                           searched_gflops=aux["searched_gflops"])
-        metrics["loss_total"] = total
+        with step_phase("forward"):
+            out = mim_forward(state.params, state.alphas, state.arch, images,
+                              mcfg, space, train=True, use_mim=use_mim,
+                              fused=fused_model, keep_ratio=keep_ratio,
+                              generator=generator, token_mask=token_mask,
+                              gate_fold=gate_fold,
+                              compute_dtype=compute_dtype)
+        with step_phase("loss"):
+            if out.logits_dist is not None:
+                base = L.distilled_pair_loss(out.logits, out.logits_dist,
+                                             labels, soft_labels=soft,
+                                             smoothing=smoothing)
+                kd_logits = out.logits_dist
+            else:
+                base = L.base_criterion(out.logits, labels, soft_labels=soft,
+                                        smoothing=smoothing)
+                kd_logits = out.logits
+            if teacher_apply is not None \
+                    and dcfg.distillation_type != "none":
+                # the teacher sees the images the student saw (mixed after
+                # the finish)
+                base = L.distillation_loss(
+                    base, kd_logits, teacher_apply(images),
+                    kind=dcfg.distillation_type, alpha=dcfg.alpha,
+                    tau=dcfg.tau)
+            metrics = {"loss_param": base}
+            total = base
+            if phase == "search":
+                arch_loss, aux = L.ofb_arch_loss(
+                    state.params, state.alphas, state.arch, space, mcfg,
+                    target_flops=scfg.target_flops, w_head=scfg.w_head,
+                    w_mlp=scfg.w_mlp, w_patch=scfg.w_patch,
+                    w_embedding=scfg.w_embedding, w_flops=scfg.w_flops,
+                    entropy=scfg.entropy, var=scfg.var, norm=scfg.norm)
+                dec = out.decoder_loss
+                # dynamic decoder weight w = base / dec of the global batch
+                # (the ranks' means averaged); its gradient flows into the
+                # decoder loss only
+                pair = torch.stack([base, dec]).detach()
+                all_mean_([pair], group=data_group())
+                w_dec = torch.where(pair[1] > 0,
+                                    pair[0] / pair[1].clamp_min(1e-12), 0.0)
+                total = total + arch_loss + w_dec * dec
+                metrics.update(loss_arch=arch_loss, loss_decoder=dec,
+                               searched_gflops=aux["searched_gflops"])
+            metrics["loss_total"] = total
         return total, metrics
 
     def step(state: TrainState, images, labels, generator=None,
              keep_ratio=None, token_masks=None, mixup_draws=None,
              augment_draws=None):
         A = images.shape[0]
-        images = augment(images, generator, augment_draws, dev) \
-            if augment is not None else images.to(dev)
-        labels = labels.to(dev)
+        with step_phase("input"):
+            images = augment(images, generator, augment_draws, dev) \
+                if augment is not None else images.to(dev)
+            labels = labels.to(dev)
         leaves = named_leaves(state.params, state.alphas)
         sharded = set(sharded_names(state.params, leaves))
 
@@ -318,26 +342,28 @@ def make_search_step(space: SearchSpace, mcfg: ModelCfg, scfg: SearchConfig,
                 else None,
                 mixup_draws[a] if mixup_draws is not None else None)
 
-        grads, metrics = _accumulate(leaves, A, micro)
-        weights = [n for n in grads if not n.startswith("alphas.")]
-        metrics["grad_norm"] = global_norm(
-            [grads[n] for n in weights], [n in sharded for n in weights])
+        sums = _accumulate(leaves, A, micro)
+        with step_phase("update"):
+            grads, metrics = _averaged(leaves, A, sums)
+            weights = [n for n in grads if not n.startswith("alphas.")]
+            metrics["grad_norm"] = global_norm(
+                [grads[n] for n in weights], [n in sharded for n in weights])
 
-        with torch.no_grad():
-            updates, state.opt_state = tx.update(grads, state.opt_state,
-                                                 leaves, sharded)
-            for n, m in static_mask.items():
-                if m != 1.0:
-                    updates[n] = updates[n] * m
-            for n, f in _finished_alpha_names(state.alphas, state.arch):
-                updates[n] = updates[n] * (1.0 - f.float())
-            if phase == "postsearch":
-                for n in updates:
-                    if _is_decoder(n):
-                        updates[n] = torch.zeros_like(updates[n])
-            _apply(leaves, updates, state.ema_params, state.params,
-                   scfg.model_ema_decay)
-        state.step += A
+            with torch.no_grad():
+                updates, state.opt_state = tx.update(grads, state.opt_state,
+                                                     leaves, sharded)
+                for n, m in static_mask.items():
+                    if m != 1.0:
+                        updates[n] = updates[n] * m
+                for n, f in _finished_alpha_names(state.alphas, state.arch):
+                    updates[n] = updates[n] * (1.0 - f.float())
+                if phase == "postsearch":
+                    for n in updates:
+                        if _is_decoder(n):
+                            updates[n] = torch.zeros_like(updates[n])
+                _apply(leaves, updates, state.ema_params, state.params,
+                       scfg.model_ema_decay)
+            state.step += A
         return state, metrics
 
     return step
@@ -428,7 +454,9 @@ class PlannedStep:
     and a call whose tensors moved raises. A capture that fails raises too;
     nothing falls back to the eager step. The attention wrappers' launch
     counts get the captured launches (`launches_per_replay`, {(wrapper,
-    body): n}) at each replay, since a replay runs no Python. Returns
+    body): n}) at each replay, since a replay runs no Python; for the same
+    reason the step's phases (`utils.profiling.step_phase`) are captured as
+    mark kernels that each replay runs. Returns
     (state, output) with the output cloned, as the next replay rewrites the
     graph's own."""
 
@@ -492,6 +520,8 @@ class PlannedStep:
 
     def _capture(self, args):
         from ..ops.attention import add_launches, launch_counts
+        from ..utils.profiling import load_step_marks
+        load_step_marks()       # the capture records the step phases' marks
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         default = torch.cuda.default_generators[
@@ -582,13 +612,17 @@ def make_planned_search_step(space: SearchSpace, mcfg: ModelCfg,
 
     def step(state: TrainState, cache, idx_plan, labels_plan, generator,
              epoch_base, epoch):
-        it = torch.div(state.step - epoch_base, A, rounding_mode="floor")
-        frac = epoch.to(torch.float32) + (it * A).to(torch.float32) / micro
-        sync_w_p(state.arch, frac, warm)
-        keep = keep_ratio_schedule(frac, scfg, state.arch, space)
-        imgs, lbls = _gather(cache, idx_plan, labels_plan, it, A)
+        with step_phase("input"):
+            it = torch.div(state.step - epoch_base, A, rounding_mode="floor")
+            frac = epoch.to(torch.float32) \
+                + (it * A).to(torch.float32) / micro
+            sync_w_p(state.arch, frac, warm)
+            keep = keep_ratio_schedule(frac, scfg, state.arch, space)
+            imgs, lbls = _gather(cache, idx_plan, labels_plan, it, A)
         state, metrics = inner(state, imgs, lbls, generator, keep)
-        return state, torch.stack([metrics[k].float() for k in keys])
+        with step_phase("update"):
+            packed = torch.stack([metrics[k].float() for k in keys])
+        return state, packed
 
     return PlannedStep(step, resolve_device(device)), keys
 
@@ -628,31 +662,37 @@ def make_train_step(mcfg: ModelCfg, tx, *, num_classes: int, mixup_cfg=None,
     def loss_fn(params, images, labels, generator, draws):
         soft = False
         if mix_on:
-            images, labels = _mixed(
-                images, labels, generator, draws, mixup_cfg,
-                num_classes=num_classes, mixup_alpha=mixup_cfg.mixup,
-                cutmix_alpha=mixup_cfg.cutmix)
+            with step_phase("input"):
+                images, labels = _mixed(
+                    images, labels, generator, draws, mixup_cfg,
+                    num_classes=num_classes, mixup_alpha=mixup_cfg.mixup,
+                    cutmix_alpha=mixup_cfg.cutmix)
             soft = True
-        out = vit_forward(params, images, mcfg, train=True,
-                          generator=generator, compute_dtype=compute_dtype)
-        # a distilled model's second head is the teacher's: only the class
-        # head enters the base criterion, the other one the distillation
-        logits, kd_logits = out if isinstance(out, tuple) else (out, out)
-        base = L.base_criterion(logits, labels, soft_labels=soft,
-                                smoothing=smoothing)
-        if distill_on:
-            base = L.distillation_loss(
-                base, kd_logits, teacher_apply(images),
-                kind=distill.distillation_type, alpha=distill.alpha,
-                tau=distill.tau)
+        with step_phase("forward"):
+            out = vit_forward(params, images, mcfg, train=True,
+                              generator=generator,
+                              compute_dtype=compute_dtype)
+        with step_phase("loss"):
+            # a distilled model's second head is the teacher's: only the
+            # class head enters the base criterion, the other one the
+            # distillation
+            logits, kd_logits = out if isinstance(out, tuple) else (out, out)
+            base = L.base_criterion(logits, labels, soft_labels=soft,
+                                    smoothing=smoothing)
+            if distill_on:
+                base = L.distillation_loss(
+                    base, kd_logits, teacher_apply(images),
+                    kind=distill.distillation_type, alpha=distill.alpha,
+                    tau=distill.tau)
         return base, {"loss": base}
 
     def step(state: TrainState, images, labels, generator=None,
              mixup_draws=None, augment_draws=None):
         A = images.shape[0]
-        images = augment(images, generator, augment_draws, dev) \
-            if augment is not None else images.to(dev)
-        labels = labels.to(dev)
+        with step_phase("input"):
+            images = augment(images, generator, augment_draws, dev) \
+                if augment is not None else images.to(dev)
+            labels = labels.to(dev)
         leaves = dict(state.params.named_parameters())
 
         def micro(a):
@@ -660,13 +700,15 @@ def make_train_step(mcfg: ModelCfg, tx, *, num_classes: int, mixup_cfg=None,
                            mixup_draws[a] if mixup_draws is not None
                            else None)
 
-        grads, metrics = _accumulate(leaves, A, micro)
-        with torch.no_grad():
-            updates, state.opt_state = tx.update(grads, state.opt_state,
-                                                 leaves)
-            _apply(leaves, updates, state.ema_params, state.params,
-                   ema_decay)
-        state.step += A
+        sums = _accumulate(leaves, A, micro)
+        with step_phase("update"):
+            grads, metrics = _averaged(leaves, A, sums)
+            with torch.no_grad():
+                updates, state.opt_state = tx.update(grads, state.opt_state,
+                                                     leaves)
+                _apply(leaves, updates, state.ema_params, state.params,
+                       ema_decay)
+            state.step += A
         return state, metrics
 
     return step
@@ -701,10 +743,13 @@ def make_planned_train_step(mcfg: ModelCfg, tx, *, num_classes: int,
 
     def step(state: TrainState, cache, idx_plan, labels_plan, generator,
              epoch_base):
-        it = torch.div(state.step - epoch_base, A, rounding_mode="floor")
-        imgs, lbls = _gather(cache, idx_plan, labels_plan, it, A)
+        with step_phase("input"):
+            it = torch.div(state.step - epoch_base, A, rounding_mode="floor")
+            imgs, lbls = _gather(cache, idx_plan, labels_plan, it, A)
         state, metrics = inner(state, imgs, lbls, generator)
-        return state, metrics["loss"].float()
+        with step_phase("update"):
+            loss = metrics["loss"].float()
+        return state, loss
 
     return PlannedStep(step, resolve_device(device))
 

@@ -23,7 +23,8 @@ from ..models.swin_search import swin_model_flops, swin_search_forward
 from . import losses as L
 from .optim import named_leaves
 from .steps import (PlannedStep, TrainState, _accumulate, _apply, _augmenter,
-                    _cls_metrics, _finished_alpha_names, _gather, _mixed)
+                    _averaged, _cls_metrics, _finished_alpha_names, _gather,
+                    _mixed)
 
 SWIN_METRIC_KEYS_SEARCH = ("loss_param", "loss_total", "loss_arch",
                            "searched_gflops", "grad_norm")
@@ -115,7 +116,7 @@ def make_swin_search_step(space: SearchSpace, cfg: SwinCfg,
                            mixup_draws[a] if mixup_draws is not None
                            else None)
 
-        grads, metrics = _accumulate(leaves, A, micro)
+        grads, metrics = _averaged(leaves, A, _accumulate(leaves, A, micro))
         wnorms = torch._foreach_norm(
             [g for n, g in grads.items() if not n.startswith("alphas.")])
         metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(wnorms))
@@ -161,7 +162,7 @@ def make_swin_train_step_dense(cfg: SwinCfg, tx, *, smoothing: float = 0.1,
                                     smoothing=smoothing)
             return loss, {"loss": loss}
 
-        grads, metrics = _accumulate(leaves, A, micro)
+        grads, metrics = _averaged(leaves, A, _accumulate(leaves, A, micro))
         with torch.no_grad():
             updates, state.opt_state = tx.update(grads, state.opt_state,
                                                  leaves)

@@ -33,6 +33,7 @@ SOURCES = {
     "attention_bwd_streaming": "attention_bwd_streaming.cu",
     "attention_fwd_unaligned": "attention_fwd_unaligned.cu",
     "attention_bwd_unaligned": "attention_bwd_unaligned.cu",
+    "step_marks": "step_marks.cu",
 }
 _HEADERS = ("attention_common.cuh", "sm90.cuh", "sm90_tma.cuh")
 

@@ -3,7 +3,7 @@
 Port of ofb_tpu/parallel/mesh.py. The reference's only parallelism is DDP
 over NCCL: a 1-D 'data' axis, the batch split over it and the state
 replicated, the gradients averaged by an all-reduce (which the port's
-steps make, `core/steps.py:_accumulate`). A second 'model' axis holds the
+steps make, `core/steps.py:_averaged`). A second 'model' axis holds the
 tensor-parallel shards of the supernet's block matmuls: the search step on
 a (data, model) mesh, which the JAX package gets from XLA's SPMD
 partitioner and the port from `parallel/tensor_parallel.py`.

@@ -1,20 +1,41 @@
-"""Profiling hooks: a torch.profiler trace and a step timer.
+"""Profiling hooks: a torch.profiler trace and the phases of a step.
 
 Port of ofb_tpu/utils/profiling.py. `trace(logdir)` records the host and,
 on the card, the device activity of its block and writes a Chrome trace
 (`trace.json`, open it in Perfetto or chrome://tracing) into `logdir`.
-`StepTimer` measures steps a second between hard synchronisations: a
-scalar read back to the host, which waits for every step queued before it.
+
+`step_phase(name)` names a part of a training step (`PHASES`: input,
+forward, loss, backward, update; `core/steps.py` places them). It always
+opens the profiler range `ofb.step.<name>`, which an eager step shows as a
+host span (and, on the card, as that span's device-side projection). A
+step captured as a CUDA graph (`core.steps.PlannedStep`) runs no Python at
+a replay, so there the phase also launches two empty kernels on the
+captured stream, `ofb_mark_<name>_begin` and `ofb_mark_<name>_end`
+(`csrc/step_marks.cu`): graph nodes that every replay runs in stream order
+around the phase's own kernels. A device trace of replays (`trace`, or the
+benchmark's `benchmark/marks.py`) splits a call's device time by phase
+from the marks' times. Outside a capture, and on the CPU, a phase launches
+nothing and loads no library.
+
+To see a run's step phases, wrap a few step calls in `trace(logdir)` and
+open `logdir/trace.json`: an eager step's phases are host spans named
+`ofb.step.*`; a replayed graph's are the `ofb_mark_*` kernels on the
+device's stream, each phase's kernels between its begin and end marks.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import os
-import time
 from typing import Optional
 
 import torch
+
+PHASES = ("input", "forward", "loss", "backward", "update")
+RANGE_PREFIX = "ofb.step."
+STEP_RANGES = tuple(RANGE_PREFIX + p for p in PHASES)
 
 
 @contextlib.contextmanager
@@ -35,26 +56,47 @@ def trace(logdir: Optional[str]):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-class StepTimer:
-    """Wall-clock steps a second, synchronised every `sync_every` steps."""
+@functools.lru_cache(maxsize=None)
+def load_step_marks():
+    """The C entry that launches a mark: its library built and loaded, and
+    every mark kernel loaded into the current context. A step's capture
+    calls it first, so that the capture records only the marks'
+    launches."""
+    from ..ops.cuda_build import load
+    lib = load("step_marks")
+    lib.ofb_step_marks_load.argtypes = []
+    lib.ofb_step_marks_load.restype = ctypes.c_int
+    rc = lib.ofb_step_marks_load()
+    if rc != 0:
+        raise RuntimeError(f"loading the step marks failed: CUDA error {rc}")
+    fn = lib.ofb_step_mark
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    def __init__(self, sync_every: int = 50):
-        self.sync_every = sync_every
-        self.count = 0
-        self.t0 = time.perf_counter()
-        self.synced_steps = 0
-        self.rate = float("nan")
 
-    def tick(self, sync_value=None) -> Optional[float]:
-        """Call once a step with a small device scalar; returns steps/s
-        over the steps since the last sync at each `sync_every`-th call
-        (None otherwise)."""
-        self.count += 1
-        if self.count % self.sync_every == 0 and sync_value is not None:
-            float(sync_value)  # the readback waits for the queued steps
-            now = time.perf_counter()
-            self.rate = (self.count - self.synced_steps) / (now - self.t0)
-            self.t0 = now
-            self.synced_steps = self.count
-            return self.rate
-        return None
+def _mark(phase: int, edge: int) -> None:
+    rc = load_step_marks()(phase, edge,
+                           torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the {PHASES[phase]} step mark failed: CUDA "
+                           f"error {rc}")
+
+
+@contextlib.contextmanager
+def step_phase(name: str):
+    """The block is step phase `name` (one of `PHASES`): the profiler
+    range `ofb.step.<name>` and, while the current CUDA stream is captured,
+    a begin and an end mark kernel on it."""
+    if name not in PHASES:
+        raise ValueError(f"step phase {name!r} (one of {', '.join(PHASES)})")
+    # no stream captures before CUDA is initialised
+    marks = torch.cuda.is_initialized() \
+        and torch.cuda.is_current_stream_capturing()
+    phase = PHASES.index(name)
+    with torch.profiler.record_function(RANGE_PREFIX + name):
+        if marks:
+            _mark(phase, 0)
+        yield
+        if marks:
+            _mark(phase, 1)

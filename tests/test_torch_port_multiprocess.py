@@ -1,6 +1,6 @@
 """The port's data parallelism across real processes: two ranks of a gloo
 process group on the CPU (ofb_tpu_torch/parallel/, the all-reduce of
-`core/steps.py:_accumulate`, compress consensus, the rank-sharded
+`core/steps.py:_averaged`, compress consensus, the rank-sharded
 `evaluate`, the CLIs under a group), mirroring tests/test_multiprocess.py.
 Each rank is a subprocess (`tests/torch_multiproc_worker.py`,
 `tests/torch_multiproc_cli_worker.py`) that meets the other through a

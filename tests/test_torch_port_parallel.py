@@ -13,8 +13,8 @@ CPU, against ofb_tpu where it has the same function:
   `batch_sharding` puts on mesh position r (the rows
   `make_array_from_process_local_data` takes from process r), plain and
   with the accumulation axis leading;
-* `StepTimer` returns a rate at every `sync_every`-th tick, `trace` writes
-  a Chrome trace, `create_model` / `list_models` are the registry's.
+* `trace` writes a Chrome trace, `create_model` / `list_models` are the
+  registry's.
 """
 
 import json
@@ -35,7 +35,7 @@ from ofb_tpu_torch.models import registry as R
 from ofb_tpu_torch.models.from_jax import torch_name
 from ofb_tpu_torch.parallel import distributed as D
 from ofb_tpu_torch.parallel import mesh as M
-from ofb_tpu_torch.utils.profiling import StepTimer, trace
+from ofb_tpu_torch.utils.profiling import trace
 from test_torch_port_from_jax import TINY, jax_supernet, port_supernet
 
 torch.set_num_threads(1)
@@ -192,17 +192,6 @@ def test_eval_plan_of_a_small_shard_is_one_smaller_batch():
     # a shard of at least one batch pads its last batch as before
     assert epoch_plan(20, epoch=0, rank=0, world=2, batch_size=4,
                       repeated_aug=False, train=False, seed=0).shape == (3, 4)
-
-
-def test_step_timer_rates_at_each_sync():
-    t = StepTimer(sync_every=3)
-    out = [t.tick(torch.tensor(1.0)) for _ in range(7)]
-    assert out[0] is None and out[1] is None and out[3] is None
-    assert out[2] > 0 and out[5] > 0 and t.rate == out[5]
-    assert t.synced_steps == 6
-    # without a value to read back no sync is taken
-    t2 = StepTimer(sync_every=1)
-    assert t2.tick() is None and np.isnan(t2.rate)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
