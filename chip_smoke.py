@@ -237,7 +237,16 @@ which raises (and so exits non-zero) on failure:
      reported) and `dryrun.entry()` (finite (8, 1000) logits, 12 resident
      launches); then, where the story's subnet has head dims off a
      multiple of 8, the unaligned body at its shapes (batch 128) beside
-     the twin, SDPA and the bound.
+     the twin, SDPA and the bound;
+ 16. the layer-norm kernel pair (ops/layer_norm.py): each kernel against
+     its plain version in bf16 and fp32 at the main path's shapes and
+     ragged ones (D 96, 276, 1280, odd row counts, a mask with no live
+     channel), dropped channels exact, a second backward and a CUDA graph
+     replay bit-equal; timed in bf16 at the search's and the finetune's
+     shapes beside the bytes bound (each kernel at LN_MIN_BOUND or more),
+     the eager chain it replaced and torch's layer_norm (the yardstick
+     only); the launches a replay of the planned search (4 microbatches),
+     one data-parallel rank's search and the dense finetune step runs.
 
 The line before the last is the kernels' JSON (`launches` sums the twelve
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
@@ -248,8 +257,8 @@ driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
 processes) and `launches_tools` (phase 15) give each;
 the general body's times are fp32's; the unaligned body's are at the
 first shape of UNALIGNED_TIMING, with every timed shape under `shapes` and
-the shapes at which phase 15 checked and timed it under `story`); the
-last line is {"ok": true,
+the shapes at which phase 15 checked and timed it under `story`), after
+phase 16's `layer_norm` line; the last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -3895,6 +3904,274 @@ def run_tools(A, card, root):
                                   "the story's")
 
 
+# phase 16: the layer-norm kernel pair (ops/layer_norm.py, csrc/layer_norm.cu)
+LN_EPS = 1e-6
+# (leading dims, D, kind) held against the plain versions in bf16 and fp32:
+# kind None is the plain norm, 'zero' / 'identity' the passthrough of a mask
+# with dead channels, 'dead' a mask with no live channel ('zero'). The main
+# path's shapes (the search's block and final norms, the finetune's), then
+# ragged ones: Swin-T's first stage (96), an exported subnet's width (276),
+# ViT-H's (1280: the looped kernels), odd row counts, widths whose rows
+# take the looped kernels for their alignment (262 in bf16, 7 in fp32)
+LN_CHECKS = (((256, 197), 384, "identity"), ((256, 197), 384, "zero"),
+             ((256, 197), 192, None), ((3, 17), 96, "identity"),
+             ((5, 33), 276, "zero"), ((7, 13), 276, None),
+             ((2, 257), 1280, None), ((3, 257), 1280, "identity"),
+             ((33,), 384, "dead"), ((1,), 8, None), ((5, 7), 262, "zero"),
+             ((3, 5), 7, None))
+# ... timed in bf16, the main path's type: (leading dims, D, kind, calls a
+# search call makes of it, a finetune call's)
+LN_TIMING = (((256, 197), 384, "identity", 4 * 24, 0),
+             ((256, 197), 384, "zero", 4, 0),
+             ((256, 197), 192, None, 0, 25))
+# launches a call of the planned main path, (forward, backward) by kind:
+# the search (4 microbatches of 25 norms), one data-parallel rank's search
+# (1 microbatch), the finetune's dense DeiT-Ti (1)
+LN_LAUNCHES = (("search", 4, "masked", 100), ("search rank", 1, "masked", 25),
+               ("finetune", 1, "plain", 25))
+# least share of its bytes bound each kernel reaches at the main path's shapes
+LN_MIN_BOUND = 0.6
+# max |kernel - plain| per element. bf16 (y, dx): the same fp32 arithmetic
+# summed in another order can round to the neighbouring bf16 value, one step
+# of at most 2^-7 of the value. fp32: summation order, as a share of the
+# largest |plain| of the tensor (rows of up to 1280, columns of 50432 rows)
+TOL_LN = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+
+
+def _ln_inputs(lead, D, kind, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(lead + (D,), generator=g, device="cuda") * 2 + 0.5
+         ).to(dtype)
+    dy = torch.randn(lead + (D,), generator=g, device="cuda").to(dtype)
+    scale = 1 + 0.3 * torch.randn(D, generator=g, device="cuda")
+    bias = 0.2 * torch.randn(D, generator=g, device="cuda")
+    mask = None
+    if kind == "dead":
+        mask = torch.zeros(D, device="cuda")
+    elif kind is not None:
+        mask = (torch.rand(D, generator=g, device="cuda") > 0.3).float()
+    return x.reshape(-1, D), dy.reshape(-1, D), mask, scale, bias
+
+
+def _ln_close(what, got, want, dtype, per_element):
+    import torch
+    got, want = got.float(), want.float()
+    tol = TOL_LN[str(dtype).split(".")[-1]]
+    if per_element:
+        bound = tol * want.abs() + 1e-6
+    else:
+        bound = tol * want.abs().max() + 1e-6
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or (err > bound).any():
+        raise AssertionError(f"16 {what}: kernel against the plain version "
+                             f"off by {err.max().item():.3e}")
+    return err.max().item()
+
+
+def check_layer_norm(L):
+    """Phase 16 (a): each kernel against its plain version (run on the card)
+    at LN_CHECKS in bf16 and fp32; dropped channels exactly 0 or x (dy); a
+    second backward, and a CUDA graph of forward + backward replayed, equal
+    the first eager call bit for bit. Returns the largest errors."""
+    import torch
+    worst = {}
+    for lead, D, kind in LN_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, mask, scale, bias = _ln_inputs(lead, D, kind, dtype, D)
+            pt = "zero" if kind == "dead" else kind
+            want_f = L.layer_norm_fwd_reference(x, mask, scale, bias, LN_EPS,
+                                                pt)
+            want_b = L.layer_norm_bwd_reference(x, dy, mask, scale,
+                                                want_f[1], want_f[2], pt)
+            got_f = L.layer_norm_fwd(x, mask, scale, bias, LN_EPS, pt)
+            got_b = L.layer_norm_bwd(x, dy, mask, scale, got_f[1], got_f[2],
+                                     pt)
+            again = L.layer_norm_bwd(x, dy, mask, scale, got_f[1], got_f[2],
+                                     pt)
+            torch.cuda.synchronize()
+            what = f"{lead + (D,)} {kind} {str(dtype)[6:]}"
+            for name, g, w in zip(("y", "mean", "rstd", "dx", "dgamma",
+                                   "dbeta"), got_f + got_b, want_f + want_b):
+                elem = name in ("y", "dx") and dtype == torch.bfloat16
+                key = (name, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0), _ln_close(
+                    f"{what} {name}", g, w, dtype, elem))
+            if mask is not None:
+                dead = mask == 0
+                keep = pt == "identity"
+                for name, g, src in (("y", got_f[0], x), ("dx", got_b[0], dy)):
+                    want = src[:, dead] if keep else torch.zeros_like(
+                        src[:, dead])
+                    if not torch.equal(g[:, dead], want):
+                        raise AssertionError(f"16 {what}: {name} on dropped "
+                                             "channels")
+                for g in got_b[1:]:
+                    if g[dead].any():
+                        raise AssertionError(f"16 {what}: dgamma / dbeta on "
+                                             "dropped channels")
+            if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+                raise AssertionError(f"16 {what}: a second backward differs")
+    # a CUDA graph of forward + backward at the search's block norm
+    x, dy, mask, scale, bias = _ln_inputs((256, 197), 384, "identity",
+                                          torch.bfloat16, 7)
+
+    def pair():
+        y, mean, rstd = L.layer_norm_fwd(x, mask, scale, bias, LN_EPS,
+                                         "identity")
+        return (y,) + L.layer_norm_bwd(x, dy, mask, scale, mean, rstd,
+                                       "identity")
+    eager = pair()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pair()                                   # warm the side stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = pair()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(eager, outs)):
+        raise AssertionError("16: a graph replay of forward + backward "
+                             "differs from the eager call")
+    log(f"16 layer norm: kernels against the plain versions at "
+        f"{len(LN_CHECKS)} shapes x (bf16, fp32), largest errors "
+        f"{ {'/'.join(k): f'{v:.2e}' for k, v in worst.items()} } (tol "
+        f"{TOL_LN}); dropped channels exact; a second backward and a graph "
+        "replay bit-equal")
+    return {"/".join(k): v for k, v in worst.items()}
+
+
+def time_layer_norm(L):
+    """Phase 16 (b): at LN_TIMING, bf16, device time (torch.profiler) of
+    the forward kernel and the backward kernels, beside their bytes bound
+    (read x (and dy), write y (dx), the row moments), the eager chain they
+    replace (`masked_layer_norm_reference` / `layer_norm_reference`, the
+    forward with autograd recording, the backward as autograd runs it) and
+    torch's layer_norm (`library_ms`, the yardstick only: the port never
+    calls it). Returns a row a shape, with the chain's and the kernels' ms a
+    search call and a finetune call."""
+    import torch
+    import torch.nn.functional as F
+    rows = []
+    for lead, D, kind, n_search, n_ft in LN_TIMING:
+        x, dy, mask, scale, bias = _ln_inputs(lead, D, kind, torch.bfloat16,
+                                              11)
+        R, isz = x.shape[0], x.element_size()
+        y, mean, rstd = L.layer_norm_fwd(x, mask, scale, bias, LN_EPS, kind)
+        ms = {"fwd": device_time_ms(lambda: L.layer_norm_fwd(
+                  x, mask, scale, bias, LN_EPS, kind)),
+              "bwd": device_time_ms(lambda: L.layer_norm_bwd(
+                  x, dy, mask, scale, mean, rstd, kind))}
+        xr = x.detach().requires_grad_()
+        sr, br = scale.detach().requires_grad_(), bias.detach().requires_grad_()
+
+        def chain():
+            if kind is None:
+                return L.layer_norm_reference(xr, sr, br, eps=LN_EPS)
+            return L.masked_layer_norm_reference(xr, mask, sr, br, eps=LN_EPS,
+                                                 passthrough=kind)
+        yc = chain()
+        ms["plain_fwd"] = device_time_ms(chain)
+        ms["plain_bwd"] = device_time_ms(lambda: torch.autograd.grad(
+            yc, (xr, sr, br), dy, retain_graph=True))
+        sl, bl = (t.to(torch.bfloat16).requires_grad_() for t in (scale, bias))
+        yl = F.layer_norm(xr, (D,), sl, bl, LN_EPS)
+        ms["library_fwd"] = device_time_ms(
+            lambda: F.layer_norm(xr, (D,), sl, bl, LN_EPS))
+        ms["library_bwd"] = device_time_ms(lambda: torch.autograd.grad(
+            yl, (xr, sl, bl), dy, retain_graph=True))
+        bound = {"fwd": (2 * R * D * isz + 2 * R * 4) / HBM_BYTES_PER_S * 1e3,
+                 "bwd": (3 * R * D * isz + 2 * R * 4) / HBM_BYTES_PER_S * 1e3}
+        row = dict(shape=list(lead) + [D], kind=kind or "plain",
+                   bound_ms=bound, ms=ms,
+                   bound_share={k: bound[k] / ms[k] for k in bound},
+                   calls_search=n_search, calls_finetune=n_ft)
+        rows.append(row)
+        log(f"16 layer norm {tuple(lead) + (D,)} {kind or 'plain'} bf16: "
+            f"kernel fwd {ms['fwd']:.4f} / bwd {ms['bwd']:.4f} ms (bytes "
+            f"bound {bound['fwd']:.4f} / {bound['bwd']:.4f}: "
+            f"{100 * bound['fwd'] / ms['fwd']:.1f}% / "
+            f"{100 * bound['bwd'] / ms['bwd']:.1f}%), eager chain "
+            f"{ms['plain_fwd']:.4f} / {ms['plain_bwd']:.4f}, torch layer_norm "
+            f"{ms['library_fwd']:.4f} / {ms['library_bwd']:.4f}")
+    for cell in ("search", "finetune"):
+        per = {k: sum(r[f"calls_{cell}"] * r["ms"][k] for r in rows)
+               for k in ("fwd", "bwd", "plain_fwd", "plain_bwd")}
+        log(f"16 layer norm a {cell} call: eager chain {per['plain_fwd']:.2f} "
+            f"ms forward + {per['plain_bwd']:.2f} backward, the kernels "
+            f"{per['fwd']:.2f} + {per['bwd']:.2f}")
+    return rows
+
+
+def count_layer_norm_launches(L):
+    """Phase 16 (c): the layer-norm launches a replay of the planned main
+    path's steps runs (`PlannedStep.launches_per_replay`): LN_LAUNCHES."""
+    import dataclasses
+    import torch
+    from ofb_tpu_torch import bench as B
+    from ofb_tpu_torch.bench import PlannedCalls
+    from ofb_tpu_torch.core.steps import make_planned_search_step
+    from ofb_tpu_torch.models.registry import create_model
+
+    mb, got = 16, {}
+    for what, A_, kind, n in LN_LAUNCHES:
+        L.reset_launch_counts()
+        if what.startswith("search"):
+            bundle, state, _, _, _ = B.build_step("deit_small", mb, seed=8)
+            scfg, tx = B.search_config(mb)
+            scfg = dataclasses.replace(scfg, accum_iter=A_)
+            pstep, _ = make_planned_search_step(
+                bundle.space, bundle.cfg, scfg, tx, phase="search",
+                steps_per_epoch=9, device="cuda")
+            calls = PlannedCalls(pstep, {"state": state}, mb * A_, 9,
+                                 search=True, images=64, seed=9)
+        else:
+            bundle = create_model("deit_tiny_patch16_224", device="cuda")
+            dense = bundle.init(5)
+            _, _, _, fstate, pstep, _ = B.build_subnet_steps(
+                None, None, mb, subnet=(dense, bundle.cfg), planned=True)
+            calls = PlannedCalls(pstep, {"state": fstate}, mb, 9,
+                                 search=False, images=64, seed=9)
+        for _ in range(pstep.WARMUP + 2):         # eager, capture, replay
+            calls.graph()
+        torch.cuda.synchronize()
+        per = {k: n_ for k, n_ in pstep.launches_per_replay.items()
+               if k[0].startswith("layer_norm")}
+        want = {(w, k): (n if k == kind else 0)
+                for w in ("layer_norm_fwd", "layer_norm_bwd")
+                for k in ("masked", "plain")}
+        if pstep.captures != 1 or per != want:
+            raise AssertionError(f"16 {what}: layer-norm launches a replay "
+                                 f"{per}, wanted {want}")
+        got[what] = per
+        del calls, pstep
+        torch.cuda.empty_cache()
+    log(f"16 layer norm launches a replay: "
+        f"{ {w: [n for n in c.values() if n] for w, c in got.items()} }")
+    return got
+
+
+def run_layer_norm(A):
+    """Phase 16: the layer-norm kernel pair: (a) against the plain
+    versions, (b) timed at the main path's shapes, each kernel at
+    LN_MIN_BOUND of its bytes bound or more, (c) the launches a call of the
+    planned main path."""
+    from ofb_tpu_torch.ops import layer_norm as L
+    errs = check_layer_norm(L)
+    rows = time_layer_norm(L)
+    slow = [(r["shape"], r["kind"], k, round(s, 3)) for r in rows
+            for k, s in r["bound_share"].items() if s < LN_MIN_BOUND]
+    if slow:
+        raise AssertionError(f"16 layer-norm kernels under {LN_MIN_BOUND} of "
+                             f"their bytes bound: {slow}")
+    launches = count_layer_norm_launches(L)
+    return dict(max_abs_err=errs, timing=rows, launches_per_replay={
+        w: {f"{a}/{b}": n for (a, b), n in c.items() if n}
+        for w, c in launches.items()})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3953,6 +4230,7 @@ def main():
         tools, story_unaligned = timed("15", run_tools, A, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    layer_norm = timed("16", run_layer_norm, A)
     log(f"seconds by phase: {json.dumps(seconds)}")
 
     kernels = []
@@ -4006,6 +4284,7 @@ def main():
         "agreeing {agreed}, dropped {dropped}; times from queued_time_ms "
         "{queued}".format(**SESSIONS))
     log(smi)
+    log(json.dumps({"layer_norm": layer_norm}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

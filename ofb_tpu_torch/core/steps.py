@@ -452,11 +452,12 @@ class PlannedStep:
     over tensors in the same storage: the state is updated in place
     (optimizer, counters, `compress`), the plan goes through `load_plan`,
     and a call whose tensors moved raises. A capture that fails raises too;
-    nothing falls back to the eager step. The attention wrappers' launch
-    counts get the captured launches (`launches_per_replay`, {(wrapper,
-    body): n}) at each replay, since a replay runs no Python; for the same
-    reason the step's phases (`utils.profiling.step_phase`) are captured as
-    mark kernels that each replay runs. Returns
+    nothing falls back to the eager step. The attention and layer-norm
+    wrappers' launch counts get the captured launches
+    (`launches_per_replay`, {(wrapper, body or kind): n}) at each replay,
+    since a replay runs no Python; for the same reason the step's phases
+    (`utils.profiling.step_phase`) are captured as mark kernels that each
+    replay runs. Returns
     (state, output) with the output cloned, as the next replay rewrites the
     graph's own."""
 
@@ -511,15 +512,13 @@ class PlannedStep:
             raise RuntimeError("a captured planned step was handed tensors "
                                "in new storage: the state and the plan must "
                                "be updated in place")
-        from ..ops.attention import add_launches
         self._graph.replay()
-        add_launches(self.launches_per_replay)
+        _add_launches(self.launches_per_replay)
         self.calls += 1
         self.replays += 1
         return args[0], self._out.clone()
 
     def _capture(self, args):
-        from ..ops.attention import add_launches, launch_counts
         from ..utils.profiling import load_step_marks
         load_step_marks()       # the capture records the step phases' marks
         torch.cuda.synchronize(self.device)
@@ -530,16 +529,31 @@ class PlannedStep:
         for a in args:
             if isinstance(a, torch.Generator) and a is not default:
                 graph.register_generator_state(a)
-        before = launch_counts()
+        before = _launch_counts()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             _, out = self.fn(*args)
         # the capture recorded the launches; they run at each replay
         self.launches_per_replay = {k: n - before[k]
-                                    for k, n in launch_counts().items()}
-        add_launches({k: -n for k, n in self.launches_per_replay.items()})
+                                    for k, n in _launch_counts().items()}
+        _add_launches({k: -n for k, n in self.launches_per_replay.items()})
         self._graph, self._out = graph, out
         self._keys = self._signature(args)
         self.captures += 1
+
+
+def _launch_counts():
+    """The kernel wrappers' launch counts: the attention pair's {(wrapper,
+    body): n} and the layer-norm pair's {(wrapper, kind): n}."""
+    from ..ops import attention, layer_norm
+    return {**attention.launch_counts(), **layer_norm.launch_counts()}
+
+
+def _add_launches(counts):
+    """Add `_launch_counts`-keyed counts to each wrapper's own."""
+    from ..ops import attention, layer_norm
+    for ops in (attention, layer_norm):
+        own = ops.launch_counts()
+        ops.add_launches({k: n for k, n in counts.items() if k in own})
 
 
 def _refuse_gloo_capture(device) -> None:

@@ -34,6 +34,7 @@ SOURCES = {
     "attention_fwd_unaligned": "attention_fwd_unaligned.cu",
     "attention_bwd_unaligned": "attention_bwd_unaligned.cu",
     "step_marks": "step_marks.cu",
+    "layer_norm": "layer_norm.cu",
 }
 _HEADERS = ("attention_common.cuh", "sm90.cuh", "sm90_tma.cuh")
 

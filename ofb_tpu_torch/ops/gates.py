@@ -18,6 +18,9 @@ from typing import Tuple
 
 import torch
 
+from .layer_norm import (fused_layer_norm, layer_norm_reference,
+                         masked_layer_norm_reference)
+
 NEG_INF = -1e30  # acts as -inf in the masked softmax without inf - inf NaNs
 
 
@@ -107,27 +110,19 @@ def masked_layer_norm(x, mask, scale, bias, *, eps: float = 1e-6,
 
     passthrough: 'zero' — dropped channels output 0 (patch-embed output,
     final norm); 'identity' — dropped channels pass through (block norms).
+    A CPU tensor runs the eager twin, a CUDA tensor the kernel pair
+    (ops/layer_norm.py).
     """
-    if passthrough not in ("zero", "identity"):
-        raise ValueError(passthrough)
-    xf = x.float()
-    m = (mask > 0).float()
-    cnt = m.sum().clamp_min(1.0)
-    mean = (xf * m).sum(dim=-1, keepdim=True) / cnt
-    var = ((xf - mean).square() * m).sum(dim=-1, keepdim=True) / cnt
-    normed = (xf - mean) * torch.rsqrt(var + eps)
-    normed = normed * scale.float() + bias.float()
-    if passthrough == "zero":
-        out = normed * m
-    else:
-        out = torch.where(m > 0, normed, xf)
-    return out.to(x.dtype)
+    if x.device.type == "cpu":
+        return masked_layer_norm_reference(x, mask, scale, bias, eps=eps,
+                                           passthrough=passthrough)
+    return fused_layer_norm(x, scale, bias, mask=mask, eps=eps,
+                            passthrough=passthrough)
 
 
 def layer_norm(x, scale, bias, *, eps: float = 1e-6) -> torch.Tensor:
-    """Plain LayerNorm (biased variance) computed in fp32."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    return (out * scale.float() + bias.float()).to(x.dtype)
+    """Plain LayerNorm (biased variance) computed in fp32: the eager twin on
+    a CPU tensor, the kernel pair on a CUDA tensor (ops/layer_norm.py)."""
+    if x.device.type == "cpu":
+        return layer_norm_reference(x, scale, bias, eps=eps)
+    return fused_layer_norm(x, scale, bias, eps=eps)
