@@ -1,20 +1,99 @@
-"""The frozen arithmetic: FLOPs from shapes, the attention bounds and the
-interval arithmetic behind `device.idle` and `nccl.exposed_ms`."""
+"""The frozen arithmetic: FLOPs from shapes by architecture, the attention
+bounds and the interval arithmetic behind `device.idle` and
+`nccl.exposed_ms`."""
 
 import pytest
+import torch
 
 from benchmark import cells, flops, trace
 from benchmark.trace import TracedWindow
 
+# Swin-T (Liu et al. 2021; microsoft/Swin-Transformer
+# swin_tiny_patch4_window7_224) in the keys of the port's `SwinCfg`
+SWIN_T = {"arch": "swin", "img_size": 224, "patch_size": 4, "in_chans": 3,
+          "num_classes": 1000, "embed_dim": 96, "depths": [2, 2, 6, 2],
+          "num_heads": [3, 6, 12, 24], "window": 7, "mlp_ratio": 4.0,
+          "search": {"attn": True, "mlp": True, "embed": True}}
+# two stages whose sides (16, 8) are multiples of the window 4
+SWIN_TINY = {"arch": "swin", "img_size": 32, "patch_size": 2, "in_chans": 3,
+             "num_classes": 10, "embed_dim": 8, "depths": [2, 2],
+             "num_heads": [2, 4], "window": 4, "mlp_ratio": 2.0}
 
-def test_deit_s_forward_is_its_published_4_6_gmacs():
-    macs = sum(flops.forward_macs(cells.config("deit_s_ofb")).values())
-    assert macs / 1e9 == pytest.approx(4.6, rel=0.01)
+
+# The ViT count as the cells' readings were taken with it, to the last bit:
+# per image, train FLOPs and forward multiply-adds
+@pytest.mark.parametrize("name, phase, train, fwd", [
+    ("deit_s_ofb", "search", 28_094_251_008, 4_598_882_304),
+    ("deit_ti", "finetune", 7_464_296_448, 1_253_683_200),
+])
+def test_the_vit_count_is_unchanged_to_the_bit(name, phase, train, fwd):
+    cfg = cells.config(name)
+    assert flops.train_flops_per_image(cfg, phase) == train
+    assert sum(flops.forward_macs(cfg).values()) == fwd
 
 
-def test_deit_ti_forward_is_its_published_1_3_gmacs():
-    macs = sum(flops.forward_macs(cells.config("deit_ti")).values())
-    assert macs / 1e9 == pytest.approx(1.3, rel=0.05)
+@pytest.mark.parametrize("cfg, gmacs, rel", [
+    (cells.config("deit_s_ofb"), 4.6, 0.01),
+    (cells.config("deit_ti"), 1.3, 0.05),
+    (cells.config("deit_b_ofb"), 17.6, 0.01),
+    (SWIN_T, 4.5, 0.01),
+], ids=["deit_s", "deit_ti", "deit_b", "swin_t"])
+def test_forward_is_the_published_gmacs(cfg, gmacs, rel):
+    assert sum(flops.forward_macs(cfg).values()) / 1e9 == \
+        pytest.approx(gmacs, rel=rel)
+
+
+@pytest.mark.parametrize("cfg, macs", [(SWIN_T, 4_490_566_656),
+                                       (SWIN_TINY, None)],
+                         ids=["swin_t", "two_stages"])
+def test_the_swin_count_is_the_ports_forward_as_torch_counts_it(cfg, macs):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ofb_tpu_torch.models.swin import Swin, SwinCfg, swin_forward
+    keys = ("img_size", "patch_size", "in_chans", "num_classes", "embed_dim",
+            "depths", "num_heads", "window", "mlp_ratio")
+    scfg = SwinCfg(**{k: tuple(cfg[k]) if isinstance(cfg[k], list)
+                      else cfg[k] for k in keys})
+    model = Swin(scfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(1, scfg.img_size, scfg.img_size, scfg.in_chans)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        swin_forward(model, x, scfg, compute_dtype=torch.float32)
+    count = sum(flops.forward_macs(cfg).values())
+    assert counter.get_total_flops() == 2 * count
+    assert macs is None or count == macs
+
+
+def test_swin_trains_as_the_vit_does_and_has_no_attention_calls():
+    f = flops.forward_macs(SWIN_T)
+    assert set(f) == {"patch", "blocks", "merge", "head"}
+    assert flops.train_flops_per_image(SWIN_T, "search") == 2 * (
+        2 * f["patch"] + 3 * (f["blocks"] + f["merge"] + f["head"]))
+    assert flops.attention_calls(SWIN_T, 128) == []
+
+
+@pytest.mark.parametrize("cfg, match", [
+    (dict(SWIN_T, arch="mamba"), "'mamba'"),
+    (dict(SWIN_T, img_size=192), "window"),
+    (dict(SWIN_T, search={"decoder": True}), "decoder"),
+], ids=["unknown_arch", "side_off_the_window", "swin_decoder"])
+def test_what_has_no_count_raises(cfg, match):
+    with pytest.raises(ValueError, match=match):
+        flops.train_flops_per_image(cfg, "search")
+
+
+def test_mfu_and_the_roofline_read_a_swin_cell():
+    t = TracedWindow(events=[("sm90_xmma_gemm", 0.0, 5e5)],
+                     spans=[("bench.call", 0.0, 1.0)], window=(0.0, 1e6),
+                     calls=2, cell={"config": SWIN_T, "phase": "search",
+                                    "rank_images_per_call": 1024,
+                                    "rank_rows": 128,
+                                    "microbatches_per_call": 8})
+    # 2 (2 · 14,450,688 + 3 (4,301,939,712 + 173,408,256 + 768,000)) FLOPs
+    # an image, 2048 images in the window's second
+    share = 100 * 26_914_498_560 * 2048 / 989e12
+    assert cells.metric_reader("mfu").read(t) == pytest.approx(share,
+                                                               rel=1e-12)
+    assert cells.metric_reader("attn.roofline").read(t) is None
 
 
 def test_a_subnets_blocks_count_their_own_widths():
