@@ -139,8 +139,16 @@ which raises (and so exits non-zero) on failure:
      --export-finetune-epochs 1`, `cli.eval` of its best/ and
      model_exported and one `cli.train_swin_dense` epoch; the two TPU
      searches of runs/ladder_swin_r5 exported on the card to their
-     committed widths. Swin's window attention is plain PyTorch, as in the
-     JAX package: the phase asserts that no attention kernel launched.
+     committed widths. Swin's window attention runs on its own kernel pair
+     (ops/window_attention.py; the JAX package's is plain jnp): the phase
+     asserts that no attention kernel launched, that the window kernels
+     did (12 + 12 a replay of the planned step), holds the bf16 pair to
+     its plain version at Swin-T's four stage shapes at batch 256 (out,
+     lse, dqkv and the bias table's gradient; max_abs_err a row in the
+     `window_attention` line), and times it there beside its bound (the
+     benchmark's `window_flops`), its plain version, the eager chain it
+     replaced and torch's SDPA with the bias and mask as an additive mask,
+     with the peak memory of each.
  12. data parallelism over torch.distributed (`run_dist`), DeiT-S at full
      width and depth, bf16, a global batch of 64, each part in processes
      of its own (this file run with a role): (a) a world of one over NCCL
@@ -251,7 +259,8 @@ which raises (and so exits non-zero) on failure:
 The line before the last is the kernels' JSON (`launches` sums the twelve
 driven paths, `launches_fp32`, `launches_search`, `launches_lifecycle`,
 `launches_cli`, `launches_384`, `launches_planned`, `launches_vit`,
-`launches_swin` (0), `launches_dist` (phase 12's processes),
+`launches_swin` (0: phase 11's window kernels are counted in its own
+`window_attention` line), `launches_dist` (phase 12's processes),
 `launches_tp` (phase 13's (a) to (c) with the resumed steps),
 `launches_ladder` (phase 14's
 processes) and `launches_tools` (phase 15) give each;
@@ -2191,6 +2200,14 @@ SWIN_RUNS = ("runs/ladder_swin_r5/t0.45", "runs/ladder_swin_r5/t0.70")
 # fp32 gradients of the card against the CPU, as max |card - cpu| over the
 # leaf's largest magnitude: sums over 12 blocks in other orders (TF32 off)
 TOL_GRADS = 1e-3
+# the window-attention pair timed at Swin-T's stages, batch 256, head dim
+# 32: (tokens a side, heads, blocks of the stage)
+SWIN_WINDOW_TIMING = ((56, 3, 2), (28, 6, 2), (14, 12, 6), (7, 24, 2))
+SWIN_WINDOW_BATCH = 256
+# the window kernels' largest error against their plain versions, as a
+# share of the plain version's largest magnitude (the card tests'): bf16
+# outputs round once more or less than the plain version's
+WINDOW_TOL = {"out": 1e-2, "lse": 1e-5, "dqkv": 1e-2, "dtable": 1e-3}
 
 
 def _rel(a, b):
@@ -2222,9 +2239,13 @@ def run_swin(A, card, root):
     --planned-epoch --force-finish --export-finetune-epochs 1`, `cli.eval`
     of its best/ and model_exported, one epoch of `cli.train_swin_dense`;
     (e) the two TPU searches of runs/ladder_swin_r5 exported on the card
-    to the widths their model_exported/meta.json records. Swin's window
-    attention is plain PyTorch, as in the JAX package: no attention kernel
-    of the port may launch. Returns the launches counted (all 0)."""
+    to the widths their model_exported/meta.json records; (f) the
+    window-attention pair held to its plain version and timed
+    (`time_window_attention`). Swin's window
+    attention runs on its own kernels: no attention kernel of the ViT
+    bodies may launch, and the window kernels must have (fp32 in (a),
+    bf16 after). Returns (the attention launches counted (all 0), the
+    window kernels' launches and timing)."""
     import copy
     import torch
     from ofb_tpu_torch import bench as B
@@ -2240,6 +2261,7 @@ def run_swin(A, card, root):
                                                   fuse_swin_params,
                                                   swin_model_flops,
                                                   swin_search_forward)
+    from ofb_tpu_torch.ops import window_attention as W
 
     # every body of both wrappers, at 0
     totals = dict.fromkeys(kernel_counts(only("resident", 0, 0)), 0)
@@ -2248,6 +2270,7 @@ def run_swin(A, card, root):
         for k, n in kernel_counts(counts).items():
             totals[k] += n
     A.reset_launch_counts()
+    W.reset_launch_counts()
     f32 = dict(compute_dtype=torch.float32)
 
     # (a) fp32 forward and backward, card against CPU
@@ -2365,6 +2388,13 @@ def run_swin(A, card, root):
         steps_per_epoch=9, device="cuda")
     calls, worst = graph_vs_eager("swin search step", pstep, state, batch,
                                   True)
+    per = {k: n for k, n in pstep.launches_per_replay.items()
+           if k[0].startswith("window_attention") and n}
+    blocks = sum(bundle.cfg.depths) * scfg.accum_iter
+    if per != {("window_attention_fwd", "bf16"): blocks,
+               ("window_attention_bwd", "bf16"): blocks}:
+        raise AssertionError(f"swin planned step: window-attention launches "
+                             f"a replay {per}, wanted {blocks} + {blocks}")
     times = B.time_planned(calls, SWIN_CALLS, rounds=2)
     log(f"swin planned search step on {card}, batch {batch}: img/s graph "
         f"{[round(batch / t, 2) for t in times['graph']]}, eager "
@@ -2444,10 +2474,172 @@ def run_swin(A, card, root):
     add(by_body(A))
     if any(totals.values()):
         raise AssertionError(f"swin: attention kernels launched {totals}; "
-                             "its window attention is plain PyTorch")
-    log(f"swin: attention launches over the phase {totals} (none expected)")
-    return totals
+                             "its window attention has its own kernels")
+    window = {f"{w}/{k}": n for (w, k), n in W.launch_counts().items()}
+    if not all(window.values()):
+        raise AssertionError(f"swin: window-attention launches {window}: "
+                             "every kind should have run")
+    log(f"swin: attention launches over the phase {totals} (none expected), "
+        f"window-attention launches {window}")
+    return totals, dict(launches=window, timing=time_window_attention(W))
 
+
+def time_window_attention(W):
+    """Phase 11 (f): at SWIN_WINDOW_TIMING, bf16, the window-attention
+    kernels held to their plain versions (`window_attention_fwd_reference`
+    / `_bwd_reference`, run on the card on the same tensors: out, lse,
+    dqkv and the table's gradient within WINDOW_TOL of the plain version's
+    largest magnitude, or it raises), then their device time (forward;
+    backward with its two bias-gradient passes; `queued_time_ms`, CUDA
+    events over calls queued back to back: this late in the run the
+    profiler loses kernel records) beside their bound
+    (`benchmark/window_flops.py`'s: 8 bytes an element of q and 4 B H N² d
+    FLOPs forward, 16 and 10 backward), the plain versions, the eager chain
+    they replaced (`models.swin.window_softmax_chain` with autograd) and,
+    as a yardstick, torch's scaled_dot_product_attention on its
+    memory-efficient backend with the gathered bias plus the mask as one
+    additive (nW H, N, N) `attn_mask` broadcast over the images (its
+    q, k, v laid out as (B, nW H, N, d) before the clock, which the packed
+    qkv would need a copy for; its gradient reaches the bias table through
+    the gather). Peak memory above the inputs of one forward and backward
+    of the pair, SDPA and the chain beside. Returns a row a stage and the
+    sums over one microbatch's 12 blocks."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from ofb_tpu_torch.models import swin as S
+    dev, w, d = torch.device("cuda"), 7, 32
+    N, rows = w * w, []
+    idx = S._rel_index(w, dev)
+    for res, heads, blocks in SWIN_WINDOW_TIMING:
+        g = torch.Generator(device=dev).manual_seed(res)
+        nW = (res // w) ** 2
+        mask = S._shift_mask(res, w, dev) if res > w else None
+        Bw = SWIN_WINDOW_BATCH * nW
+        qkv = torch.randn((Bw, N, 3 * heads * d), generator=g,
+                          device=dev).to(torch.bfloat16)
+        dout = torch.randn((Bw, N, heads * d), generator=g,
+                           device=dev).to(torch.bfloat16)
+        rb = 0.02 * torch.randn(((2 * w - 1) ** 2, heads), generator=g,
+                                device=dev)
+        sc = d ** -0.5
+        out, lse = W.window_attention_fwd(qkv, heads, sc, rb, idx, mask)
+        dqkv, dtable = W.window_attention_bwd(qkv, out, dout, lse, heads, sc,
+                                              rb, idx, mask)
+        want_f = W.window_attention_fwd_reference(qkv, heads, sc, rb, idx,
+                                                  mask)
+        want = want_f + W.window_attention_bwd_reference(
+            qkv, want_f[0], dout, want_f[1], heads, sc, rb, idx, mask)
+        err, rel = {}, {}
+        for name, got, ref in zip(WINDOW_TOL, (out, lse, dqkv, dtable), want):
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"window attention {name} at {Bw} x "
+                                     f"{heads}: shape {tuple(got.shape)} "
+                                     f"(want {tuple(ref.shape)}) or not "
+                                     "finite")
+            err[name] = (got.float() - ref.float()).abs().max().item()
+            rel[name] = _rel(got, ref)
+        bad = {k: v for k, v in rel.items() if not v < WINDOW_TOL[k]}
+        if bad:
+            raise AssertionError(f"window attention at {Bw} x {heads} "
+                                 f"(mask {mask is not None}) against its "
+                                 f"plain version: {bad} (tol {WINDOW_TOL})")
+        del want_f, want, dqkv, dtable
+        qr, br = qkv.detach().requires_grad_(), rb.detach().requires_grad_()
+
+        def chain():
+            return S.window_softmax_chain(qr, heads, sc, br, idx, mask)
+        y = chain()
+        # the yardstick: SDPA over (B, nW H, N, d), one additive bias
+        lay = [t.reshape(SWIN_WINDOW_BATCH, nW, N, heads, d).transpose(
+            2, 3).reshape(SWIN_WINDOW_BATCH, nW * heads, N, d).contiguous()
+            .requires_grad_() for t in qkv.unflatten(-1, (3, -1)).unbind(2)]
+        sb = rb.detach().requires_grad_()
+        sdo = dout.reshape(SWIN_WINDOW_BATCH, nW, N, heads, d).transpose(
+            2, 3).reshape(SWIN_WINDOW_BATCH, nW * heads, N, d).contiguous()
+
+        def sdpa():
+            bias = sb[idx.reshape(-1)].reshape(N, N, heads).permute(2, 0, 1)
+            bias = bias[None] if mask is None else bias[None] + \
+                mask[:, None]
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    *lay, attn_mask=bias.to(torch.bfloat16).contiguous()
+                    .reshape(1, -1, N, N), scale=sc)
+        so = sdpa()
+        so_err = _rel(so.reshape(SWIN_WINDOW_BATCH, nW, heads, N, d)
+                      .transpose(2, 3).reshape(Bw, N, heads * d), out)
+        calls = {
+            "fwd": (lambda: W.window_attention_fwd(
+                qkv, heads, sc, rb, idx, mask), 20),
+            "bwd": (lambda: W.window_attention_bwd(
+                qkv, out, dout, lse, heads, sc, rb, idx, mask), 20),
+            "plain_fwd": (lambda: W.window_attention_fwd_reference(
+                qkv, heads, sc, rb, idx, mask), 5),
+            "plain_bwd": (lambda: W.window_attention_bwd_reference(
+                qkv, out, dout, lse, heads, sc, rb, idx, mask), 5),
+            "chain_fwd": (chain, 5),
+            "chain_bwd": (lambda: torch.autograd.grad(
+                y, (qr, br), dout, retain_graph=True), 5),
+            "sdpa_fwd": (sdpa, 10),
+            "sdpa_bwd": (lambda: torch.autograd.grad(
+                so, (*lay, sb), sdo, retain_graph=True), 10)}
+        ms = {}
+        for k, (fn, iters) in calls.items():
+            fn()                                 # warm
+            ms[k] = queued_time_ms(fn, iters)
+
+        def pair():
+            o, m = W.window_attention_fwd(qkv, heads, sc, rb, idx, mask)
+            return W.window_attention_bwd(qkv, o, dout, m, heads, sc, rb,
+                                          idx, mask)
+        peak = {}
+        for k, step in (
+                ("kernels", pair),
+                ("chain", lambda: torch.autograd.grad(chain(), (qr, br),
+                                                      dout)),
+                ("sdpa", lambda: torch.autograd.grad(sdpa(), (*lay, sb),
+                                                     sdo))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step()
+            torch.cuda.synchronize()
+            peak[k] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        n = Bw * N * heads * d
+        flops = 4.0 * Bw * heads * N * N * d
+        bound = {"fwd": 1e3 * max(8 * n / HBM_BYTES_PER_S, flops / BF16_FLOPS),
+                 "bwd": 1e3 * max(16 * n / HBM_BYTES_PER_S,
+                                  2.5 * flops / BF16_FLOPS)}
+        row = dict(shape=[Bw, N, heads, d], mask=mask is not None,
+                   blocks=blocks, max_abs_err=err, rel_err=rel,
+                   sdpa_out_rel_err=so_err, ms=ms, peak_mib=peak,
+                   bound_ms=bound,
+                   bound_share={k: bound[k] / ms[k] for k in bound})
+        rows.append(row)
+        log(f"11 window attention {tuple(row['shape'])} mask {row['mask']}: "
+            f"against the plain version {rel} of its largest (max abs "
+            f"{err}); kernel fwd {ms['fwd']:.4f} / bwd {ms['bwd']:.4f} ms "
+            f"(bound {bound['fwd']:.4f} / {bound['bwd']:.4f}: "
+            f"{100 * bound['fwd'] / ms['fwd']:.1f}% / "
+            f"{100 * bound['bwd'] / ms['bwd']:.1f}%), plain version "
+            f"{ms['plain_fwd']:.4f} / {ms['plain_bwd']:.4f}, eager chain "
+            f"{ms['chain_fwd']:.4f} / {ms['chain_bwd']:.4f}, sdpa "
+            f"{ms['sdpa_fwd']:.4f} / {ms['sdpa_bwd']:.4f} (out {so_err:.2e} "
+            f"off the kernel's); peak MiB above the inputs {peak}")
+        del qkv, dout, out, lse, qr, br, y, lay, sb, sdo, so
+        torch.cuda.empty_cache()
+    per = {k: sum(r["blocks"] * r["ms"][k] for r in rows)
+           for k in rows[0]["ms"]}
+    per["bound"] = sum(r["blocks"] * (r["bound_ms"]["fwd"]
+                                      + r["bound_ms"]["bwd"]) for r in rows)
+    log(f"11 window attention a microbatch of {SWIN_WINDOW_BATCH}: kernels "
+        f"{per['fwd']:.2f} + {per['bwd']:.2f} ms (bound {per['bound']:.2f}: "
+        f"{100 * per['bound'] / (per['fwd'] + per['bwd']):.1f}%), plain "
+        f"versions {per['plain_fwd']:.2f} + {per['plain_bwd']:.2f}, eager "
+        f"chain {per['chain_fwd']:.2f} + {per['chain_bwd']:.2f}, sdpa "
+        f"{per['sdpa_fwd']:.2f} + {per['sdpa_bwd']:.2f}")
+    return dict(rows=rows, microbatch_ms=per)
 
 
 # ---------------------------------------------------------------------------
@@ -4223,7 +4415,7 @@ def main():
         at384 = timed("8", run_384, A, smi, root)
         planned = timed("9", run_planned, A, smi, root)
         vit, vit_fp32 = timed("10", run_vit_family, A, smi, root)
-        swin = timed("11", run_swin, A, smi, root)
+        swin, window = timed("11", run_swin, A, smi, root)
         dist = timed("12", run_dist, A, smi, root)
         tp = timed("13", run_tp, A, smi, root)
         ladder = timed("14", run_ladder, A, smi, root)
@@ -4284,6 +4476,7 @@ def main():
         "agreeing {agreed}, dropped {dropped}; times from queued_time_ms "
         "{queued}".format(**SESSIONS))
     log(smi)
+    log(json.dumps({"window_attention": window}))
     log(json.dumps({"layer_norm": layer_norm}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -47,8 +47,9 @@ CLI's export finetune: cosine AdamW) and eval steps; --planned as for
 DeiT. With --profile N it also prints the window attention's share of
 the traced steps' device kernel time: the kernels under its profiler
 range (`models/swin.py:WINDOW_ATTENTION_RANGE`) and those of the backward
-nodes its ops created, in the same trace. Swin's window attention is
-plain PyTorch: no attention kernel of the port runs.
+nodes its ops created, in the same trace. Swin's window attention runs
+on its own kernel pair (ops/window_attention.py), none of the ViT
+attention bodies.
 
 MFU counts 6 x the model's forward MACs per image for a training step
 (backward ~ 2 x forward, 2 flops a MAC) and 2 x for eval, against the H100

@@ -543,15 +543,17 @@ class PlannedStep:
 
 def _launch_counts():
     """The kernel wrappers' launch counts: the attention pair's {(wrapper,
-    body): n} and the layer-norm pair's {(wrapper, kind): n}."""
-    from ..ops import attention, layer_norm
-    return {**attention.launch_counts(), **layer_norm.launch_counts()}
+    body): n}, the layer-norm pair's and the window-attention pair's
+    {(wrapper, kind): n}."""
+    from ..ops import attention, layer_norm, window_attention
+    return {**attention.launch_counts(), **layer_norm.launch_counts(),
+            **window_attention.launch_counts()}
 
 
 def _add_launches(counts):
     """Add `_launch_counts`-keyed counts to each wrapper's own."""
-    from ..ops import attention, layer_norm
-    for ops in (attention, layer_norm):
+    from ..ops import attention, layer_norm, window_attention
+    for ops in (attention, layer_norm, window_attention):
         own = ops.launch_counts()
         ops.add_launches({k: n for k, n in counts.items() if k in own})
 

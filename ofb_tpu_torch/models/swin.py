@@ -7,11 +7,12 @@ parameter modules and the dense `swin_forward`. Images and activations are
 NHWC as in the JAX package; weights are in PyTorch layouts (Linear weight
 (out, in), conv weight OIHW), fp32, cast to the compute dtype at each use.
 
-Window attention is plain PyTorch (two batched matmuls and an fp32
-softmax over 49-token windows with the relative-position bias and the
-shift mask), as the JAX package computes it outside any Pallas kernel.
-Its widths are shape-driven: the qkv width comes from the qkv output, so
-an exported subnet whose residual width was cut keeps the dense qkv inner
+Window attention (two products and an fp32 softmax over 49-token windows
+with the relative-position bias and the shift mask, which the JAX package
+computes as plain jnp outside any Pallas kernel) is the eager chain on a
+CPU tensor and a hand-written CUDA kernel pair on the card
+(ops/window_attention.py). Its widths are shape-driven: the qkv width
+comes from the qkv output, so an exported subnet whose residual width was cut keeps the dense qkv inner
 width and runs through the same forward.
 
 The JAX package can pack G windows into one block-diagonal attention
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gates import layer_norm
+from ..ops.window_attention import window_attention
 from ..utils.profiling import span_begin, span_end
 from .vit import drop_path, linear, trunc_normal_
 
@@ -253,33 +255,44 @@ def patch_conv(weight, bias, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1) + bias.to(x.dtype)
 
 
+def window_softmax_chain(qkv: torch.Tensor, heads: int, scale,
+                         rel_bias: torch.Tensor, rel_idx: torch.Tensor,
+                         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The eager chain of window attention, on any device: qkv (Bw, N,
+    3 * heads * hd) -> (Bw, N, heads * hd), scores in fp32 times `scale`,
+    plus the relative-position bias and the shift mask (nW, N, N) of
+    consecutive windows, fp32 softmax, then p @ v in the compute dtype."""
+    Bw, N, _ = qkv.shape
+    hd = qkv.shape[-1] // (3 * heads)
+    q, k, v = qkv.reshape(Bw, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    attn = torch.matmul(q, k.transpose(-2, -1)).float() * scale
+    bias = rel_bias.float()[rel_idx].reshape(N, N, heads).permute(2, 0, 1)
+    attn = attn + bias
+    if mask is not None:
+        nW = mask.shape[0]
+        attn = (attn.reshape(Bw // nW, nW, heads, N, N)
+                + mask[None, :, None]).reshape(Bw, heads, N, N)
+    attn = torch.softmax(attn, dim=-1).to(qkv.dtype)
+    return torch.matmul(attn, v).transpose(1, 2).reshape(Bw, N, heads * hd)
+
+
 def window_softmax_attend(qkv: torch.Tensor, heads: int, scale,
                           rel_bias: torch.Tensor, rel_idx: torch.Tensor,
                           mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """qkv (Bw, N, 3 * heads * hd) -> (Bw, N, heads * hd): scores in fp32
-    times `scale`, plus the relative-position bias and the shift mask
-    (nW, N, N) of consecutive windows, fp32 softmax, then p @ v in the
-    compute dtype. Runs inside the profiler range WINDOW_ATTENTION_RANGE,
-    which `bench.py --profile` reads back from a step's trace, and, while
-    the stream is captured, between the `window_attn` span marks of its
-    forward and of its backward (`utils.profiling.span_begin`)."""
+    """Window attention (`window_softmax_chain`'s function): the eager chain
+    on a CPU tensor, the window-attention kernel pair
+    (ops/window_attention.py), which keeps the scores out of device memory,
+    on a CUDA tensor. Runs inside the profiler range
+    WINDOW_ATTENTION_RANGE, which `bench.py --profile` reads back from a
+    step's trace, and, while the stream is captured, between the
+    `window_attn` span marks of its forward and of its backward
+    (`utils.profiling.span_begin`)."""
     with torch.profiler.record_function(WINDOW_ATTENTION_RANGE):
         qkv, rel_bias = span_begin("window_attn", qkv, rel_bias)
-        Bw, N, _ = qkv.shape
-        hd = qkv.shape[-1] // (3 * heads)
-        q, k, v = qkv.reshape(Bw, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        attn = torch.matmul(q, k.transpose(-2, -1)).float() * scale
-        bias = rel_bias.float()[rel_idx].reshape(N, N, heads).permute(2, 0,
-                                                                      1)
-        attn = attn + bias
-        if mask is not None:
-            nW = mask.shape[0]
-            attn = (attn.reshape(Bw // nW, nW, heads, N, N)
-                    + mask[None, :, None]).reshape(Bw, heads, N, N)
-        attn = torch.softmax(attn, dim=-1).to(qkv.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(Bw, N,
-                                                            heads * hd)
-        return span_end("window_attn", out)
+        attend = window_softmax_chain if qkv.device.type == "cpu" \
+            else window_attention
+        return span_end("window_attn", attend(qkv, heads, scale, rel_bias,
+                                              rel_idx, mask))
 
 
 def _window_attention(p: WindowAttention, x, heads: int, rel_idx, mask):

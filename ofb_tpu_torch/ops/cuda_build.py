@@ -35,6 +35,7 @@ SOURCES = {
     "attention_bwd_unaligned": "attention_bwd_unaligned.cu",
     "step_marks": "step_marks.cu",
     "layer_norm": "layer_norm.cu",
+    "window_attention": "window_attention.cu",
 }
 _HEADERS = ("attention_common.cuh", "sm90.cuh", "sm90_tma.cuh")
 
